@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``infernos_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases, each printing one JSON line:
+
+1. device   -- card name and power limit, TF32 off for the references;
+2. build    -- nvcc builds ``infernos_tpu_torch/csrc/*.cu`` (one process
+               per source, in parallel);
+3. kernel 1 -- encoder attention kernel vs its plain PyTorch version;
+4. kernel 2 -- SpeechT5 decoder-step kernel chain vs its plain version;
+5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
+6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
+               streams 4 sessions to >= 1 s of audio each.
+
+Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+Weights are random, from fixed seeds.  Every check that fails raises, so
+the script exits non-zero and prints no result line; it never falls back to
+the CPU or to a plain version.  Each kernel's launch count is set to 0
+right before the engine that runs it and read right after.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
+
+ATTN_TOL = 1e-2  # bf16 output: the plain version computes in fp32 from the same bf16 inputs
+STEP_TOL = 3e-2  # fp32 hidden after 6 layers of bf16 weights; cache rows rounded to bf16
+ENC_REL_TOL = 5e-2  # relative L2 error of the 32-layer encoder output, bf16 activations
+MEL_REL_TOL = 5e-2  # relative L2 error of one TTS tick's mel chunk (16 chained steps), bf16
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device ms of ``fn`` over ``iters`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def profile_window(profile_dir):
+    """A ``torch.profiler`` window when ``--profile`` is given, else none."""
+    if not profile_dir:
+        return contextlib.nullcontext(None)
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def profile_summary(torch, prof, wall_s: float, profile_dir, name: str) -> dict:
+    """Kernel time by name (written to ``<dir>/<name>_profile.txt``) and the
+    device's busy and idle shares of the window's wall time."""
+    if prof is None:
+        return {}
+    ka = prof.key_averages()
+    path = os.path.join(profile_dir, f"{name}_profile.txt")
+    with open(path, "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    busy_us = sum(e.self_device_time_total for e in ka
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"profiled_wall_s": wall_s, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s, "profile": path}
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# -- phase 3: encoder attention kernel ----------------------------------------
+
+def phase_attention(torch, attn):
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    BH, Dh = 20, 64
+    cases = []
+    for S in (1500, 250, 401):
+        for masked in (False, True):
+            q, k, v = (torch.randn((BH, S, Dh), generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(3))
+            mask = torch.zeros((BH, S), device="cuda")
+            if masked:  # key padding, a different length per row
+                lens = torch.randint(S // 2, S + 1, (BH,), generator=g,
+                                     device="cuda")
+                mask = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
+                                   0.0, attn.NEG_INF)
+            got = attn._kernel_attention(q, k, v, mask)
+            want = attn._plain_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(math.isfinite(err) and err <= ATTN_TOL,
+                  f"attention kernel S={S} masked={masked}: max abs err {err}")
+            case = {"S": S, "masked": masked, "max_abs_err": err}
+            if S == 1500 and not masked:  # the encoder's shape on the main path
+                n_ops = 4.0 * BH * S * S * Dh
+                n_bytes = 4 * BH * S * Dh * 2 + BH * S * 4
+                case["ms"] = cuda_ms(lambda: attn._kernel_attention(q, k, v, mask), 50)
+                case["plain_ms"] = cuda_ms(lambda: attn._plain_attention(q, k, v, mask), 10)
+                q4, k4, v4 = (t[None] for t in (q, k, v))  # [1, BH, S, Dh]
+                case["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+                case["bound_ms"], case["bound_by"] = bound_ms(n_bytes, n_ops)
+            cases.append(case)
+    main = next(c for c in cases if "ms" in c)
+    emit("kernel_attention", tol=ATTN_TOL, cases=cases,
+         bound_us=main["bound_ms"] * 1e3)
+    return {"name": "encoder_attention", "route": "cuda",
+            "source": "infernos_tpu_torch/csrc/attention.cu",
+            "replaces": "infernos_tpu/ops/attention.py:53",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+
+
+# -- phase 4: TTS decoder-step kernel chain -----------------------------------
+
+def step_bytes(fw, cache, pos, B, with_mask=True) -> float:
+    """Bytes one step must move: weights and LN/bias params once, each
+    slot's self K/V up to its pos, the whole cross K/V, x in, h out."""
+    Lyr, _, H, _, Dh = cache.self_k.shape
+    S = cache.cross_k.shape[3]
+    D = H * Dh
+    w = sum(t.numel() * t.element_size() for t in fw.values())
+    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
+    self_kv = 2 * Lyr * H * Dh * 2 * rows
+    cross_kv = 2 * Lyr * B * H * S * Dh * 2
+    return w + self_kv + cross_kv + (B * S * 4 if with_mask else 0) + 2 * B * D * 4
+
+
+def step_ops(fw, cache, pos, B) -> float:
+    Lyr, _, H, _, Dh = cache.self_k.shape
+    S = cache.cross_k.shape[3]
+    mats = sum(fw[n].numel() for n in ("wqkv", "wso", "wcq", "wco", "w1", "w2"))
+    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
+    return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
+
+
+def phase_tts_step(torch, st5, ts):
+    cfg = st5.SpeechT5Config()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
+    for n in ("ln1", "ln2", "ln3"):  # init is g=1, b=0: make the affine part count
+        ln = params["dec_layers"][n]
+        ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device="cuda")
+        ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device="cuda")
+    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    B, T, S = 8, 512, 96
+    Lyr, H, Dh = cfg.decoder_layers, cfg.decoder_attention_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    init = [rnd(Lyr, B, H, T, Dh), rnd(Lyr, B, H, T, Dh),
+            rnd(Lyr, B, H, S, Dh), rnd(Lyr, B, H, S, Dh)]
+    ck = st5.DecoderCache(*(t.clone() for t in init))  # kernel's cache
+    cp = st5.DecoderCache(*(t.clone() for t in init))  # plain version's cache
+    lens = torch.tensor([96, 1, 50, 96, 17, 80, 96, 33], device="cuda")
+    enc_mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+    pos0 = torch.tensor([0, 511, 1, 255, 100, 37, 400, 7], device="cuda")
+    h_err = row_err = 0.0
+    written = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+    for it in range(4):  # chained: pos advances, caches carry over
+        pos = pos0 + it
+        x = rnd(B, 1, cfg.hidden_size).float()  # fp32 x: h comes back in fp32
+        hk = ts._kernel_decode_step(fw, cfg, x, ck, pos, enc_mask)
+        hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
+        torch.cuda.synchronize()
+        h_err = max(h_err, (hk.float() - hp.float()).abs().max().item())
+        written[torch.arange(B, device="cuda"), pos.clamp(max=T - 1)] = True
+    for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
+        row_err = max(row_err, (a.float() - b.float()).abs().max().item())
+    untouched = all(
+        torch.equal(getattr(ck, n).permute(1, 3, 0, 2, 4)[~written],
+                    init[i].permute(1, 3, 0, 2, 4)[~written])
+        for i, n in enumerate(("self_k", "self_v")))
+    untouched = untouched and torch.equal(ck.cross_k, init[2]) \
+        and torch.equal(ck.cross_v, init[3])
+    check(math.isfinite(h_err) and h_err <= STEP_TOL,
+          f"tts step kernel: hidden max abs err {h_err}")
+    check(math.isfinite(row_err) and row_err <= STEP_TOL,
+          f"tts step kernel: cache rows max abs err {row_err}")
+    check(untouched, "tts step kernel: cache rows other than pos changed")
+
+    pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
+    x = rnd(B, 1, cfg.hidden_size)
+    ms = cuda_ms(lambda: ts._kernel_decode_step(fw, cfg, x, ck, pos, enc_mask), 50)
+    plain_ms = cuda_ms(lambda: ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask), 10)
+    bms, by = bound_ms(step_bytes(fw, ck, pos, B), step_ops(fw, ck, pos, B))
+    emit("kernel_tts_step", tol=STEP_TOL, hidden_max_abs_err=h_err,
+         cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
+         ms_per_step=ms, plain_ms_per_step=plain_ms,
+         chain_launches_per_step_fixed=ts.LAUNCHES_PER_LAYER * Lyr,
+         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256)
+    return {"name": "tts_decode_step", "route": "cuda",
+            "source": "infernos_tpu_torch/csrc/tts_step.cu",
+            "replaces": "infernos_tpu/ops/tts_step.py:727",
+            "max_abs_err": max(h_err, row_err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+# -- phase 5: STT engine at whisper-large-v3 width ----------------------------
+
+def synth_audio(rng, seconds: float, sr: int = 16000) -> np.ndarray:
+    """Voiced-like test signal: harmonic tones under a syllable envelope."""
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(90, 220)
+    sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.28)) / h
+              for h in range(1, 8))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
+    sig = sig * env + 0.01 * rng.standard_normal(t.shape)
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def phase_stt(torch, attn, profile_dir=None):
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.serving import stt_engine as stt
+
+    cfg = wsp.WhisperConfig()  # whisper-large-v3 dims
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    params = wsp.init_params(cfg, g, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # random weights never emit EOS: cap the decode (model_actors.py does too)
+    ecfg = stt.STTEngineConfig(dtype=torch.bfloat16, max_new_tokens=16)
+    eng = stt.STTEngine(params, cfg, ecfg)  # default device: the card
+    check(eng.device.type == "cuda", "stt engine is not on the card")
+    rng = np.random.default_rng(0)
+    audios = [synth_audio(rng, s) for s in (2.0, 3.5, 5.25, 8.0)]
+
+    # the encoder with the kernel vs with the plain version, one request
+    n = eng._bucket_for(len(audios[0])) * ecfg.sample_rate
+    wav = np.zeros((1, n), np.float32)
+    wav[0, :len(audios[0])] = audios[0]
+    eng._encode_bucket(wav, n)  # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_k = eng._encode_bucket(wav, n)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    plain = lambda q, k, v, *, n_heads, mask=None: attn.by_heads(
+        attn._plain_attention, q, k, v, n_heads=n_heads, mask=mask)
+    with mock.patch.object(wsp, "fused_attention", plain):
+        t0 = time.perf_counter()
+        enc_p = eng._encode_bucket(wav, n)
+        torch.cuda.synchronize()
+        enc_plain_ms = (time.perf_counter() - t0) * 1e3
+    ek, ep = enc_k.float(), enc_p.float()
+    rel = ((ek - ep).norm() / ep.norm()).item()
+    check(bool(torch.isfinite(ek).all()), "stt encoder output not finite")
+    check(rel <= ENC_REL_TOL, f"stt encoder kernel vs plain: rel err {rel}")
+
+    t0 = time.perf_counter()
+    eng.warmup()  # every bucket once, as a serving actor does at start
+    warmup_s = time.perf_counter() - t0
+    eng.encode_ms.clear()
+
+    results = {}
+    attn.fused_attention.launches = 0  # the main path starts here
+    with profile_window(profile_dir) as prof:
+        t0 = time.perf_counter()
+        for i, a in enumerate(audios):
+            eng.submit(stt.STTRequest(
+                audio=a, text_cb=lambda r, i=i: results.__setitem__(i, r)))
+        steps = 0
+        while len(results) < len(audios) and steps < 200:
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = attn.fused_attention.launches  # read right after the main path
+    check(len(results) == len(audios), f"stt: {len(results)} of {len(audios)} results")
+    check(any(r.tokens for r in results.values()), "stt: no request got a token")
+    for i, r in results.items():
+        check(len(r.tokens) <= ecfg.max_new_tokens,
+              f"stt request {i}: {len(r.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.tokens), f"stt request {i}: bad ids")
+        check(math.isfinite(r.no_speech_prob), f"stt request {i}: ns prob not finite")
+    check(launches == cfg.encoder_layers * len(audios),
+          f"stt: attention kernel launched {launches} times, want "
+          f"{cfg.encoder_layers} per encode")
+    emit("stt", model="whisper-large-v3", init_s=init_s, warmup_s=warmup_s,
+         steps=steps, wall_s=wall_s,
+         attention_launches=launches, encode_ms=eng.encode_ms,
+         encode_ms_warm=enc_ms, encode_ms_plain_attention=enc_plain_ms,
+         encoder_rel_err=rel, encoder_rel_tol=ENC_REL_TOL,
+         latency_s=[results[i].inf_time for i in range(len(audios))],
+         audio_s=[len(a) / 16000 for a in audios],
+         n_tokens=[len(results[i].tokens) for i in range(len(audios))],
+         **profile_summary(torch, prof, wall_s, profile_dir, "stt"))
+    return launches
+
+
+# -- phase 6: TTS engine at SpeechT5 + HiFi-GAN + AmendNet width ---------------
+
+def tick_mel_rel_err(torch, eng, tts, ts, st5, sessions) -> float:
+    """One tick's mel chunk (before the vocoder) decoded with the kernel
+    chain and, from the same state and dropout draws, with the plain step;
+    returns their relative L2 error.  The sessions first run two ticks, so
+    every slot is past pos 0; they are cancelled and drained afterwards."""
+    import dataclasses
+
+    sids = [eng.start_session(*s, lambda a: None) for s in sessions]
+    for _ in range(2):
+        eng.step()
+
+    def clone(st):
+        kw = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
+        c = kw.pop("cache")
+        return tts.TTSState(cache=st5.DecoderCache(*(
+            getattr(c, f.name).clone() for f in dataclasses.fields(c))),
+            **{k: v.clone() for k, v in kw.items()})
+
+    def plain(params, cfg, x, cache, pos, enc_mask=None, *, packed):
+        return ts._plain_decode_step(packed, cfg, x, cache, pos, enc_mask)
+
+    paused = torch.zeros(eng.ecfg.batch_slots, dtype=torch.bool, device="cuda")
+    n_frames = max(eng.ecfg.chunk_schedule)
+    with eng._lock:
+        snap, gen = clone(eng.state), eng._gen.get_state()
+        mel_k, _ = eng._decode_chunk(paused, n_frames)
+        after = eng.state
+        eng.state = snap
+        eng._gen.set_state(gen)
+        with mock.patch.object(tts, "fused_decode_step", plain):
+            mel_p, _ = eng._decode_chunk(paused, n_frames)
+        eng.state = after
+    for sid in sids:
+        eng.cancel_session(sid)
+    while eng.step():
+        pass
+    mk, mp = mel_k.float(), mel_p.float()
+    check(bool(torch.isfinite(mk).all()), "tts mel chunk not finite")
+    return ((mk - mp).norm() / mp.norm()).item()
+
+
+def phase_tts(torch, ts, profile_dir=None):
+    from infernos_tpu_torch.models import amendnet as amd
+    from infernos_tpu_torch.models import hifigan as hfg
+    from infernos_tpu_torch.models import speecht5 as st5
+    from infernos_tpu_torch.models.tokenizers import CharTokenizer
+    from infernos_tpu_torch.serving import tts_engine as tts
+    from infernos_tpu_torch.serving.speakers import SpeakerBank
+
+    cfg, vcfg = st5.SpeechT5Config(), hfg.HifiGanConfig()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
+    vparams = hfg.init_params(vcfg, g, "cuda", torch.bfloat16)
+    aparams = amd.load_pretrained("cuda", torch.bfloat16)
+    check(aparams is not None, "vendored AmendNet weights missing")
+    # random weights never fire the stop token (model_actors.py sets 2.0 too)
+    ecfg = tts.TTSEngineConfig(dtype=torch.bfloat16, stop_threshold=2.0)
+    eng = tts.TTSEngine(params, cfg, vparams, vcfg, ecfg, amd_params=aparams)
+    tok, bank = CharTokenizer(), SpeakerBank.synthetic(dim=cfg.speaker_embedding_dim)
+    texts = ["hello, how can i help you today?",
+             "the meeting moved to three thirty.",
+             "please hold while i transfer your call.",
+             "thank you for calling, goodbye!"]
+    t0 = time.monotonic()
+    eng.warmup()  # every join size and chunk size once, as an actor does
+    warmup_s = time.monotonic() - t0
+    mel_rel = tick_mel_rel_err(torch, eng, tts, ts, st5, [
+        (tok(t), bank.get(i)) for i, t in enumerate(texts)])
+    check(math.isfinite(mel_rel) and mel_rel <= MEL_REL_TOL,
+          f"tts mel chunk kernel vs plain: rel err {mel_rel}")
+    eng.tick_ms.clear()
+    eng._last_dispatch_t = None
+    chunks = {i: [] for i in range(len(texts))}
+    sr, fs = ecfg.sample_rate, vcfg.total_upsample
+
+    def samples(i):
+        return sum(len(c) for c in chunks[i] if c is not None)
+
+    first = {}
+    ts.fused_decode_step.launches = 0  # the main path starts here
+    with profile_window(profile_dir) as prof:
+        t0 = time.monotonic()
+        sids = [eng.start_session(tok(t), bank.get(i), chunks[i].append)
+                for i, t in enumerate(texts)]
+        ticks = 0
+        while min(samples(i) for i in chunks) < sr and ticks < 64:
+            eng.step()
+            ticks += 1
+            for i in chunks:
+                if i not in first and samples(i) > 0:
+                    first[i] = time.monotonic() - t0
+        for sid in sids:
+            eng.cancel_session(sid)
+        while eng.step() and ticks < 128:
+            ticks += 1
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = ts.fused_decode_step.launches  # read right after the main path
+    check(launches > 0, "tts: the decoder-step kernel never launched")
+    rms = []
+    for i, cs in chunks.items():
+        audio = [c for c in cs if c is not None]
+        check(cs and cs[-1] is None, f"tts session {i}: no end of stream")
+        check(samples(i) >= sr, f"tts session {i}: {samples(i)} samples < 1 s")
+        for c in audio:
+            check(len(c) % fs == 0, f"tts session {i}: chunk of {len(c)} samples "
+                  f"is not whole {fs}-sample mel frames")
+            check(bool(np.isfinite(c).all()), f"tts session {i}: NaN/Inf audio")
+        stream = np.concatenate(audio)
+        pkts = stream[: len(stream) // 320 * 320].reshape(-1, 320)  # 20 ms RTP frames
+        check(len(pkts) >= 50, f"tts session {i}: {len(pkts)} 20 ms packets")
+        rms.append(float(np.sqrt(np.mean(stream.astype(np.float64) ** 2))))
+        # liveness only: random weights give audio far below full scale;
+        # the mel chunk comparison above is the check of the values
+        check(rms[-1] > 0.0, f"tts session {i}: silent audio")
+    emit("tts", model="speecht5+hifigan+amendnet", warmup_s=warmup_s,
+         ticks=ticks, wall_s=wall_s,
+         step_launches=launches,
+         chain_launches_per_step_fixed=ts.LAUNCHES_PER_LAYER * cfg.decoder_layers,
+         mel_chunk_rel_err=mel_rel, mel_rel_tol=MEL_REL_TOL,
+         first_chunk_s=[first[i] for i in sorted(first)],
+         ms_per_tick=eng.tick_ms, samples=[samples(i) for i in chunks], rms=rms,
+         **profile_summary(torch, prof, wall_s, profile_dir, "tts"))
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="profile the engine runs; kernel tables go to DIR")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from infernos_tpu_torch.models import speecht5 as st5
+    from infernos_tpu_torch.ops import attention as attn
+    from infernos_tpu_torch.ops import build
+    from infernos_tpu_torch.ops import tts_step as ts
+    from infernos_tpu_torch.utils.platform import card_info
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_info()
+    check(card is not None, "nvidia-smi did not report the card")
+    print(card, flush=True)
+    emit("device", kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), card=card, torch=torch.__version__,
+         cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES))
+
+    kernels = [phase_attention(torch, attn), phase_tts_step(torch, st5, ts)]
+    kernels[0]["launches"] = phase_stt(torch, attn, args.profile)
+    kernels[1]["launches"] = phase_tts(torch, ts, args.profile)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA card (sm_90a) and ``nvcc``; without one they skip.
+Run them there with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+``chip_smoke.py`` holds the same kernels to their plain versions at the
+main path's full widths; these cases add small and ragged shapes.
+Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
+(2^-6) relative: the plain version computes in fp32 from the same bf16
+inputs, and a short masked row's output is as large as a V entry; fp32
+hidden state of the decoder step and its bf16 cache rows, 3e-2.
+"""
+
+import pytest
+import torch
+
+from infernos_tpu_torch.models import speecht5 as st5
+from infernos_tpu_torch.ops import attention as attn
+from infernos_tpu_torch.ops import tts_step as ts
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA; this host has none")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 130, 1500])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_kernel_matches_plain(card, S, masked):
+    g = torch.Generator(device=card).manual_seed(S)
+    q, k, v = (torch.randn((6, S, 64), generator=g, device=card)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.zeros((6, S), device=card)
+    if masked:
+        lens = torch.randint(1, S + 1, (6,), generator=g, device=card)
+        mask = torch.where(torch.arange(S, device=card)[None] < lens[:, None],
+                           0.0, attn.NEG_INF)
+    before = attn.fused_attention.launches
+    got = attn._kernel_attention(q, k, v, mask)
+    want = attn._plain_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attn.fused_attention.launches == before + 1
+    # bf16 output: one rounding step apart is 2^-7 relative
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2 ** -6)
+
+
+def test_attention_kernel_refuses_other_head_dims(card):
+    q = torch.zeros((2, 8, 32), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        attn._kernel_attention(q, q, q, torch.zeros((2, 8), device=card))
+
+
+@pytest.mark.parametrize("B,pos", [(3, [0, 5, 15]), (9, [15] * 9)])
+def test_decode_step_kernel_matches_plain(card, B, pos):
+    cfg = st5.SpeechT5Config(hidden_size=128, decoder_layers=2,
+                             decoder_attention_heads=2, encoder_attention_heads=2,
+                             decoder_ffn_dim=256)
+    g = torch.Generator(device=card).manual_seed(B)
+    params = st5.init_params(cfg, g, card, torch.bfloat16)
+    for n in ("ln1", "ln2", "ln3"):  # init is g=1, b=0: make the affine part count
+        ln = params["dec_layers"][n]
+        ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device=card)
+        ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device=card)
+    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    T, S = 16, 8
+    init = [torch.randn((2, B, 2, t, 64), generator=g, device=card).to(torch.bfloat16)
+            for t in (T, T, S, S)]
+    ck = st5.DecoderCache(*(t.clone() for t in init))
+    cp = st5.DecoderCache(*(t.clone() for t in init))
+    enc_mask = torch.arange(S, device=card)[None] < torch.arange(1, B + 1, device=card)[:, None]
+    p = torch.tensor(pos, device=card)
+    x = torch.randn((B, 1, 128), generator=g, device=card)
+    hk = ts._kernel_decode_step(fw, cfg, x, ck, p, enc_mask)
+    hp = ts._plain_decode_step(fw, cfg, x, cp, p, enc_mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(hk, hp, atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_k.float(), cp.self_k.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_v.float(), cp.self_v.float(), atol=3e-2, rtol=0)
+    changed = (ck.self_k != init[0]).any(dim=(0, 2, 4))  # [B, T]
+    assert not changed[torch.arange(T, device=card)[None] != p[:, None]].any()
