@@ -9,16 +9,28 @@ Phases, each printing one JSON line:
 2. build    -- nvcc builds ``infernos_tpu_torch/csrc/*.cu`` (one process
                per source, in parallel);
 3. kernel 1 -- encoder attention kernel vs its plain PyTorch version;
-4. kernel 2 -- SpeechT5 decoder-step kernel chain vs its plain version;
+4. kernel 2 -- SpeechT5 decoder-step kernel chain vs its plain version,
+               with bf16 weights and then (``kernel_tts_step_int8``) with
+               int8 weights and per-output-channel scales;
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
-               streams 4 sessions to >= 1 s of audio each.
+               streams 4 sessions to >= 1 s of audio each;
+7. turn     -- one translated turn per channel, four channels, through the
+               package's own classes: G.711 mu-law payloads of 20 ms ->
+               VADChannel/VADWorker (NeuralVAD on the card) -> STTSession ->
+               TieredSTTEngine (large-v3 width) -> translation, numbers to
+               words, sentence regrouping -> TTSSession -> TTSEngine over an
+               int8-quantized SpeechT5 with async harvest under an
+               EngineDriver -> TTSSoundDispatch -> 8 kHz G.711 frames of
+               160 bytes.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Weights are random, from fixed seeds.  Every check that fails raises, so
 the script exits non-zero and prints no result line; it never falls back to
 the CPU or to a plain version.  Each kernel's launch count is set to 0
-right before the engine that runs it and read right after.
+right before the path that runs it and read right after.
+``--only kernels`` stops after the kernel phases (a quick build-and-compare
+run; it prints no result line).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import json
 import math
 import os
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -168,15 +181,24 @@ def step_ops(fw, cache, pos, B) -> float:
     return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
 
 
-def phase_tts_step(torch, st5, ts):
+def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
+    """The decoder-step chain against its plain version at full width; with
+    ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
+    the bf16 chain's time (``bf16_ms``) is printed beside the int8 one."""
+    from infernos_tpu_torch.models.quant import quantize_params
+
     cfg = st5.SpeechT5Config()
     g = torch.Generator(device="cuda").manual_seed(4)
     params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
+    if int8:
+        params = quantize_params(params)
     for n in ("ln1", "ln2", "ln3"):  # init is g=1, b=0: make the affine part count
         ln = params["dec_layers"][n]
         ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device="cuda")
         ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device="cuda")
     fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    check(ts.is_int8(fw) == int8, "tts step: packed weights in the wrong mode")
+    name = "tts_decode_step_int8" if int8 else "tts_decode_step"
     B, T, S = 8, 512, 96
     Lyr, H, Dh = cfg.decoder_layers, cfg.decoder_attention_heads, cfg.head_dim
 
@@ -192,6 +214,7 @@ def phase_tts_step(torch, st5, ts):
     pos0 = torch.tensor([0, 511, 1, 255, 100, 37, 400, 7], device="cuda")
     h_err = row_err = 0.0
     written = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+    before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
     for it in range(4):  # chained: pos advances, caches carry over
         pos = pos0 + it
         x = rnd(B, 1, cfg.hidden_size).float()  # fp32 x: h comes back in fp32
@@ -208,25 +231,37 @@ def phase_tts_step(torch, st5, ts):
         for i, n in enumerate(("self_k", "self_v")))
     untouched = untouched and torch.equal(ck.cross_k, init[2]) \
         and torch.equal(ck.cross_v, init[3])
+    moved = (ts.fused_decode_step.launches - before[0],
+             ts.fused_decode_step.launches_int8 - before[1])
+    check(moved == ((0, 4) if int8 else (4, 0)),
+          f"{name}: launch counts moved by {moved} (bf16, int8)")
     check(math.isfinite(h_err) and h_err <= STEP_TOL,
-          f"tts step kernel: hidden max abs err {h_err}")
+          f"{name} kernel: hidden max abs err {h_err}")
     check(math.isfinite(row_err) and row_err <= STEP_TOL,
-          f"tts step kernel: cache rows max abs err {row_err}")
-    check(untouched, "tts step kernel: cache rows other than pos changed")
+          f"{name} kernel: cache rows max abs err {row_err}")
+    check(untouched, f"{name} kernel: cache rows other than pos changed")
 
     pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
     x = rnd(B, 1, cfg.hidden_size)
     ms = cuda_ms(lambda: ts._kernel_decode_step(fw, cfg, x, ck, pos, enc_mask), 50)
     plain_ms = cuda_ms(lambda: ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask), 10)
-    bms, by = bound_ms(step_bytes(fw, ck, pos, B), step_ops(fw, ck, pos, B))
-    emit("kernel_tts_step", tol=STEP_TOL, hidden_max_abs_err=h_err,
+    # operations at the bf16 tensor-core rate in both modes (the int8 codes
+    # meet fp32 activations); either way the bytes set the bound
+    n_bytes = step_bytes(fw, ck, pos, B)
+    bms, by = bound_ms(n_bytes, step_ops(fw, ck, pos, B))
+    extra = {"bf16_ms_per_step": bf16_ms} if int8 else {}
+    emit("kernel_tts_step_int8" if int8 else "kernel_tts_step", tol=STEP_TOL,
+         hidden_max_abs_err=h_err,
          cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
          ms_per_step=ms, plain_ms_per_step=plain_ms,
          chain_launches_per_step_fixed=ts.LAUNCHES_PER_LAYER * Lyr,
-         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256)
-    return {"name": "tts_decode_step", "route": "cuda",
+         step_bytes=n_bytes,
+         weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
+         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **extra)
+    return {"name": name, "route": "cuda",
             "source": "infernos_tpu_torch/csrc/tts_step.cu",
-            "replaces": "infernos_tpu/ops/tts_step.py:727",
+            "replaces": "infernos_tpu/ops/tts_step.py:727"
+                        + (" (int8w mode, :128)" if int8 else ""),
             "max_abs_err": max(h_err, row_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
@@ -321,7 +356,7 @@ def phase_stt(torch, attn, profile_dir=None):
          audio_s=[len(a) / 16000 for a in audios],
          n_tokens=[len(results[i].tokens) for i in range(len(audios))],
          **profile_summary(torch, prof, wall_s, profile_dir, "stt"))
-    return launches
+    return launches, params
 
 
 # -- phase 6: TTS engine at SpeechT5 + HiFi-GAN + AmendNet width ---------------
@@ -406,6 +441,7 @@ def phase_tts(torch, ts, profile_dir=None):
 
     first = {}
     ts.fused_decode_step.launches = 0  # the main path starts here
+    ts.fused_decode_step.launches_int8 = 0
     with profile_window(profile_dir) as prof:
         t0 = time.monotonic()
         sids = [eng.start_session(tok(t), bank.get(i), chunks[i].append)
@@ -452,10 +488,326 @@ def phase_tts(torch, ts, profile_dir=None):
     return launches
 
 
+# -- phase 7: one translated turn per channel, G.711 in to G.711 out -----------
+
+FRAME_BYTES = 160  # 20 ms of G.711 at 8 kHz
+FIXED_SENTENCE = "the line is open, please go ahead."
+
+
+class _Leg:
+    """One channel of the turn phase: its sessions, what it heard and said,
+    and its outgoing G.711 stream cut into 20 ms frames."""
+
+    def __init__(self, idx):
+        self.idx = idx
+        self.segments = []   # (ipos, n_samples) of each VAD segment
+        self.results = []    # STTResult of each engine request
+        self.said = []       # sentence groups handed to the TTS session
+        self.fixed = 0       # results that held no speakable character
+        self.say_t0 = {}     # say number -> time of say()
+        self.first_s = []    # first-chunk latency of each say
+        self.markers = 0     # end-of-say markers seen in the out stream
+        self.says_done = 0   # done callbacks of whole say requests
+        self.frames = []     # outgoing 160-byte frames
+        self._tail = b""
+        self._await_first = None
+        self.lock = threading.Lock()
+
+
+def phase_turn(torch, attn, ts, stt_params):
+    """Build the turn's engines at full width on the card, drive the turn,
+    print its line; returns the launch counts of its run (attention, int8
+    chain, bf16 chain)."""
+    from infernos_tpu_torch.models import amendnet as amd
+    from infernos_tpu_torch.models import hifigan as hfg
+    from infernos_tpu_torch.models import speecht5 as st5
+    from infernos_tpu_torch.models import vad
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.models.quant import quantize_params, quantized_bytes
+    from infernos_tpu_torch.serving import stt_engine as stt
+    from infernos_tpu_torch.serving import tts_engine as tts
+    from infernos_tpu_torch.serving.stt_tiered import TieredSTTConfig, TieredSTTEngine
+
+    wcfg = wsp.WhisperConfig()
+    t0 = time.perf_counter()
+    # random weights never emit EOS: cap the decode (as the stt phase does)
+    tcfg = TieredSTTConfig(dtype=torch.bfloat16, base=stt.STTEngineConfig(
+        dtype=torch.bfloat16, max_new_tokens=16))
+    stt_eng = TieredSTTEngine(stt_params, wcfg, tcfg)  # default tier slots
+    check(stt_eng.device.type == "cuda", "tiered stt engine is not on the card")
+    check(stt_eng.short.params is stt_eng.long.params,
+          "tiered stt: the tiers do not share one parameter tree")
+    stt_eng.warmup()
+    for e in (stt_eng.short, stt_eng.long):
+        e.encode_ms.clear()
+    stt_warm_s = time.perf_counter() - t0
+
+    cfg, vcfg = st5.SpeechT5Config(), hfg.HifiGanConfig()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dense = st5.init_params(cfg, g, "cuda", torch.bfloat16)
+    dense_bytes = quantized_bytes(dense)
+    params = quantize_params(dense)  # int8 codes + fp32 scales, after the cast
+    del dense
+    vparams = hfg.init_params(vcfg, g, "cuda", torch.bfloat16)
+    aparams = amd.load_pretrained("cuda", torch.bfloat16)
+    check(aparams is not None, "vendored AmendNet weights missing")
+    # random weights never fire the stop token; the per-say output gain is
+    # on, as a deployment on untrained weights sets it (it locks on the
+    # first chunk above 1e-7 rms)
+    ecfg = tts.TTSEngineConfig(dtype=torch.bfloat16, stop_threshold=2.0,
+                               async_harvest=True, output_norm_rms=0.05)
+    t0 = time.perf_counter()
+    tts_eng = tts.TTSEngine(params, cfg, vparams, vcfg, ecfg, amd_params=aparams)
+    check(ts.is_int8(tts_eng.packed), "tts engine did not pack int8 weights")
+    check(tts_eng.packed["sqkv"].dtype == torch.float32, "int8 scales not fp32")
+    tts_eng.warmup()
+    tts_warm_s = time.perf_counter() - t0
+    tts_eng.tick_ms.clear()
+    tts_eng.tick_frames.clear()
+    tts_eng._last_dispatch_t = None
+
+    vparams_vad = vad.load_pretrained("cuda")
+    check(vparams_vad is not None, "vendored VAD weights missing")
+    out = drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad,
+                     vad.VADConfig())
+    from infernos_tpu_torch.utils.platform import card_info
+
+    emit("turn", card=card_info(), stt_warmup_s=stt_warm_s, tts_warmup_s=tts_warm_s,
+         tts_param_bytes={"bf16": dense_bytes, "int8": quantized_bytes(params)},
+         **out)
+    return (out["attention_launches"], out["int8_step_launches"],
+            out["bf16_step_launches"])
+
+
+def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
+               n_legs=4):
+    """Four channels of mu-law payloads through VAD, STT sessions, T2T and TTS
+    sessions of the given engines, to 160-byte frames; checks the turn and
+    returns its numbers.  The kernels' launch counts are set to 0 right
+    before the first payload and read right after the last say is done."""
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+    from infernos_tpu_torch.audio.codecs.g711 import G711Codec
+    from infernos_tpu_torch.audio.markers import ASMarkerNewSent, ASMarkerSentDoneCB
+    from infernos_tpu_torch.models import vad
+    from infernos_tpu_torch.models.tokenizers import CharTokenizer
+    from infernos_tpu_torch.serving import sessions as ses
+    from infernos_tpu_torch.serving.driver import EngineDriver
+    from infernos_tpu_torch.serving.speakers import SpeakerBank
+    from infernos_tpu_torch.serving.vad_engine import VADChannel, VADWorker
+    from infernos_tpu_torch.t2t import (NumbersToWords, Translator,
+                                        regroup_sentences, sent_split)
+    from infernos_tpu_torch.t2t.lexicon import LexiconBackend
+
+    sr_in = 8000
+    cfg, ecfg = tts_eng.cfg, tts_eng.ecfg
+    enc_layers = stt_eng.short.cfg.encoder_layers
+    max_tokens = stt_eng.ecfg.max_new_tokens
+    models = []
+
+    def vad_factory(n):
+        models.append(vad.NeuralVAD(vparams_vad, vcfg_vad, n))  # on the card
+        return models[-1]
+
+    worker = VADWorker(vad_factory, window=vcfg_vad.window)
+    stt_drv = EngineDriver(stt_eng, name="stt")
+    tts_drv = EngineDriver(tts_eng, name="tts")
+
+    # -- the four legs ---------------------------------------------------------
+    codec = G711Codec()
+    tok = CharTokenizer()
+    bank = SpeakerBank.synthetic(dim=cfg.speaker_embedding_dim)
+    translator = Translator("en", "pt", backend=LexiconBackend())
+    n2w = NumbersToWords("pt")
+    speakable = set(tok.char_to_id) - set(" '.,?!-")
+    legs = [_Leg(i) for i in range(n_legs)]
+    errors = []
+
+    def guard(fn):  # a failure on a worker thread fails the phase
+        def run(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            except Exception as e:  # noqa: BLE001 - re-raised by the phase
+                errors.append(e)
+                raise
+        return run
+
+    def wire(leg):
+        stt_sess = ses.STTSession(stt_eng)
+        tts_sess = ses.TTSSession(tts_eng, tok, bank)
+
+        @guard
+        def soundout(item):
+            with leg.lock:
+                if isinstance(item, AudioChunk):
+                    if leg._await_first is not None:
+                        leg.first_s.append(time.monotonic() - leg._await_first)
+                        leg._await_first = None
+                    check(item.samplerate == ecfg.sample_rate, "tts chunk rate")
+                    pcm = item.resample(sr_in).audio
+                    check(bool(np.isfinite(pcm).all()), "NaN/Inf in the out stream")
+                    leg._tail += codec.encode(pcm)
+                elif isinstance(item, ASMarkerNewSent):
+                    leg.markers += 1
+                    pad = -len(leg._tail) % FRAME_BYTES  # whole frames per say
+                    leg._tail += codec.silence(pad)
+                while len(leg._tail) >= FRAME_BYTES:
+                    leg.frames.append(leg._tail[:FRAME_BYTES])
+                    leg._tail = leg._tail[FRAME_BYTES:]
+            if isinstance(item, ASMarkerSentDoneCB):
+                item.on_proc()  # what the pacer does when the stream drains to it
+
+        @guard
+        def say_done():
+            with leg.lock:
+                leg.says_done += 1
+                leg._await_first = None
+
+        @guard
+        def text_in(res):
+            text = res.text.strip()
+            translated = translator.translate(text)
+            groups = regroup_sentences(sent_split(n2w(translated)))
+            if not any(c in speakable for grp in groups for c in grp.lower()):
+                groups = [FIXED_SENTENCE]  # a choice of input, not a fallback
+                leg.fixed += 1
+                print(f"turn: leg {leg.idx} result {text!r} holds no speakable "
+                      f"character; saying the fixed sentence", flush=True)
+            with leg.lock:
+                leg.results.append(res)
+                leg.said.append(groups)
+                leg._await_first = time.monotonic()
+            tts_sess.say(ses.TTSRequest(groups, speaker_id=leg.idx,
+                                        done_cb=say_done))
+            tts_drv.kick()
+
+        @guard
+        def vad_chunk_in(chunk):
+            with leg.lock:
+                leg.segments.append((chunk.ipos, len(chunk.audio)))
+            stt_sess.soundin(ses.STTRequest(chunk=chunk, text_cb=text_in))
+            stt_drv.kick()
+
+        tts_sess.start(soundout)
+        return VADChannel(lambda c, active: None, vad_chunk_in, codec,
+                          sample_rate=sr_in, window=vcfg_vad.window)
+
+    chans = [wire(leg) for leg in legs]
+    rng = np.random.default_rng(7)
+
+    def quiet(seconds):
+        return (0.001 * rng.standard_normal(int(sr_in * seconds))).astype(np.float32)
+
+    payloads = []
+    for i in range(n_legs):  # two utterances per leg, pauses between
+        wav = np.concatenate([quiet(0.5), synth_audio(rng, 1.5 + 0.5 * i, sr_in),
+                              quiet(1.5), synth_audio(rng, 1.0, sr_in), quiet(1.0)])
+        payloads.append(codec.encode(wav))
+    n_in = max(len(p) for p in payloads) // FRAME_BYTES
+
+    # -- drive it: the counts start here ---------------------------------------
+    worker.start()
+    stt_drv.start()
+    tts_drv.start()
+    attn.fused_attention.launches = 0
+    ts.fused_decode_step.launches = 0
+    ts.fused_decode_step.launches_int8 = 0
+    try:
+        t0 = time.monotonic()
+        for k in range(n_in):  # 20 ms payloads at the pace of a call
+            for ch, pay in zip(chans, payloads):
+                frame = pay[k * FRAME_BYTES:(k + 1) * FRAME_BYTES]
+                if len(frame) == FRAME_BYTES:
+                    ch.ingest(worker, frame)
+            lag = t0 + (k + 1) * 0.020 - time.monotonic()
+            if lag > 0:
+                time.sleep(lag)
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline and not errors:
+            with_all = all(len(l.segments) >= 2 and len(l.results) == len(l.segments)
+                           and l.says_done == len(l.results) for l in legs)
+            if with_all and stt_eng.n_active == 0 and tts_eng.n_active == 0:
+                break
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    finally:
+        worker.stop()
+        stt_drv.stop()
+        tts_drv.stop()
+        tts_eng.close()
+    attn_launches = attn.fused_attention.launches
+    bf16_steps = ts.fused_decode_step.launches
+    int8_steps = ts.fused_decode_step.launches_int8
+    if errors:
+        raise errors[0]
+    for t in (worker, stt_drv, tts_drv, *([tts_eng._hthread] if ecfg.async_harvest else [])):
+        check(not t.is_alive(), f"turn: thread {t.name} did not stop")
+
+    # -- checks ------------------------------------------------------------------
+    encodes = len(stt_eng.short.encode_ms) + len(stt_eng.long.encode_ms)
+    n_results = sum(len(l.results) for l in legs)
+    steps_run = sum(n // cfg.reduction_factor for n in tts_eng.tick_frames)
+    for l in legs:
+        check(len(l.segments) >= 1, f"turn leg {l.idx}: no VAD segment")
+        check(len(l.results) == len(l.segments),
+              f"turn leg {l.idx}: {len(l.results)} STT results for "
+              f"{len(l.segments)} segments")
+        for r in l.results:
+            check(0 < len(r.tokens) <= max_tokens,
+                  f"turn leg {l.idx}: {len(r.tokens)} tokens")
+        n_groups = sum(len(grp) for grp in l.said)
+        check(l.says_done == len(l.results),
+              f"turn leg {l.idx}: {l.says_done} says done of {len(l.results)}")
+        check(l.markers == n_groups,
+              f"turn leg {l.idx}: {l.markers} end markers for {n_groups} sentences")
+        check(len(l._tail) == 0 and all(len(f) == FRAME_BYTES for f in l.frames),
+              f"turn leg {l.idx}: out stream is not whole {FRAME_BYTES}-byte frames")
+        check(len(l.frames) >= 50 * n_groups,
+              f"turn leg {l.idx}: only {len(l.frames)} frames out")
+    check(n_results == encodes, f"turn: {n_results} results from {encodes} encodes")
+    check(attn_launches == enc_layers * encodes,
+          f"turn: attention kernel launched {attn_launches} times for "
+          f"{encodes} encodes, want {enc_layers} each")
+    check(int8_steps == steps_run and int8_steps > 0,
+          f"turn: int8 chain launched {int8_steps} times for {steps_run} steps")
+    check(bf16_steps == 0, f"turn: the bf16 chain launched {bf16_steps} times")
+
+    # VAD ms per batched forward: the four legs' windows in one call
+    win = np.stack([codec.decode(p[:vcfg_vad.window]) for p in payloads])
+    slots = np.arange(n_legs)
+    vad_model = models[0]
+    for _ in range(3):
+        vad_model(win, slots=slots)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vad_model(win, slots=slots)
+    vad_ms = (time.perf_counter() - t0) / 20 * 1e3
+    return dict(legs=n_legs, wall_s=wall_s,
+         segments=[l.segments for l in legs],
+         n_tokens=[[len(r.tokens) for r in l.results] for l in legs],
+         stt_latency_s=[[r.inf_time for r in l.results] for l in legs],
+         stt_tier_encodes={"short": len(stt_eng.short.encode_ms),
+                           "long": len(stt_eng.long.encode_ms)},
+         said=[l.said for l in legs], fixed_sentences=sum(l.fixed for l in legs),
+         tts_first_chunk_s=[l.first_s for l in legs],
+         tts_ms_per_tick_int8=tts_eng.tick_ms,
+         tts_tick_frames=tts_eng.tick_frames,
+         frames_out=[len(l.frames) for l in legs],
+         # information only: a say whose chunks all stay under the gain
+         # lock's 1e-7 rms threshold passes through unscaled, as silence
+         frames_not_silence=[sum(f != codec.silence(FRAME_BYTES) for f in l.frames)
+                             for l in legs],
+         attention_launches=attn_launches, int8_step_launches=int8_steps,
+         bf16_step_launches=bf16_steps,
+         vad_ms_per_forward=vad_ms, vad_batch=n_legs, tts_steps_run=steps_run)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the engine runs; kernel tables go to DIR")
+    ap.add_argument("--only", choices=["kernels"],
+                    help="stop after the kernel phases (prints no result line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -485,8 +837,23 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES))
 
     kernels = [phase_attention(torch, attn), phase_tts_step(torch, st5, ts)]
-    kernels[0]["launches"] = phase_stt(torch, attn, args.profile)
-    kernels[1]["launches"] = phase_tts(torch, ts, args.profile)
+    kernels.append(phase_tts_step(torch, st5, ts, int8=True,
+                                  bf16_ms=kernels[1]["ms"]))
+    if args.only == "kernels":
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    stt_launches, stt_params = phase_stt(torch, attn, args.profile)
+    tts_launches = phase_tts(torch, ts, args.profile)
+    check(ts.fused_decode_step.launches_int8 == 0,
+          "tts: a dense tree went through the int8 chain")
+    turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
+    # each path was driven with the counts at 0 before it and read after it
+    kernels[0]["launches"] = stt_launches + turn_attn
+    kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn}
+    kernels[1]["launches"] = tts_launches + turn_bf16
+    kernels[1]["launches_by_path"] = {"tts": tts_launches, "turn": turn_bf16}
+    kernels[2]["launches"] = turn_int8
+    kernels[2]["launches_by_path"] = {"turn": turn_int8}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

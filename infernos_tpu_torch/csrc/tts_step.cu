@@ -25,6 +25,16 @@
 // Hidden states are fp32 [B, D]; weights bf16 [K, N] row-major ([in, out],
 // the 1/sqrt(Dh) attention scale already folded into the q weights and
 // biases); caches bf16 canonical [L, B, H, T, 64].
+//
+// int8-weight mode (the int8w branch of the same Pallas kernel,
+// tts_decode_step_int8 below): every big matrix is int8 codes [K, N] with
+// an fp32 scale per output channel.  The codes widen to fp32 exactly
+// (|code| <= 127) inside the same GEMM, the products accumulate unscaled in
+// fp32 (split-K partials too), and the block that finishes a tile applies
+// y * scale[n] + bias[n] and then the activation, in the TPU kernel's
+// order.  The attention scale is folded into the q third of the SCALES and
+// biases; the codes are untouched.  The step then reads ~49.5 MB of weights
+// instead of ~99 MB; attention and add+LN kernels are shared by both modes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,38 +48,96 @@ using bf16 = __nv_bfloat16;
 constexpr int GN = 64;        // output columns per block
 constexpr int GW = 8;         // warps per block; they split each K chunk
 constexpr int GM = 8;         // x rows per block (blockIdx.y covers more)
-constexpr int RPW = 4;        // K rows a warp reads at once: 8 lanes x 16 B each
-constexpr int RPB = GW * RPW; // K rows a block reads at once
 constexpr int KC = 256;       // K chunk staged in shared memory
 constexpr int KMIN = 64;      // fewest K rows one split takes
 constexpr int TARGET_BLOCKS = 264;  // two blocks per SM on 132 SMs
 
-// y[M, N] = act(x[M, K] @ w[K, N] + bias), N a multiple of 8.  Lane l of a
-// warp reads 8 columns (one 16-byte load) of K row 4 * warp + l / 8 of each
-// 32-row step, so a warp streams four 128-byte row segments per load.
+// What one 16-byte load of a lane holds, by weight type: COLS output columns
+// of one K row (8 bf16 or 16 int8), and how many of the block's GM x rows
+// the lane accumulates for them.  ROWS * COLS = 64 accumulators either way:
+// with all 8 rows an int8 lane would hold 128, which leaves one block per
+// SM; so two int8 lanes read the same 16 bytes (one request, broadcast) and
+// take four rows each.
+template <typename WT> struct Lane;
+template <> struct Lane<bf16> { static constexpr int COLS = 8, ROWS = 8; };
+template <> struct Lane<int8_t> { static constexpr int COLS = 16, ROWS = 4; };
+
+__device__ __forceinline__ void load_cols(const bf16* p, float* wv) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p2[e]);
+    wv[2 * e] = f.x;
+    wv[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load_cols(const int8_t* p, float* wv) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                         raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+  // code + 128 is a byte u in 1..255; placed in the low mantissa byte of
+  // 2^23 it reads as the float 2^23 + u, so one byte permute and one
+  // subtraction widen a code exactly, without an int-to-float conversion
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    wv[4 * e + 0] = __uint_as_float(__byte_perm(w[e], 0x4B000000u, 0x7540)) - 8388736.f;
+    wv[4 * e + 1] = __uint_as_float(__byte_perm(w[e], 0x4B000000u, 0x7541)) - 8388736.f;
+    wv[4 * e + 2] = __uint_as_float(__byte_perm(w[e], 0x4B000000u, 0x7542)) - 8388736.f;
+    wv[4 * e + 3] = __uint_as_float(__byte_perm(w[e], 0x4B000000u, 0x7543)) - 8388736.f;
+  }
+}
+
+// y = act(acc * scale + bias): the int8 mode's per-output-channel scale
+// first (null for bf16 weights), then the bias, then the activation.
+__device__ __forceinline__ float finish(float s, int col,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias,
+                                        int gelu) {
+  if (scale) s *= scale[col];
+  if (bias) s += bias[col];
+  if (gelu) s = 0.5f * s * (1.f + erff(s * 0.70710678118654752f));
+  return s;
+}
+
+// y[M, N] = act((x[M, K] @ w[K, N]) * scale + bias), N a multiple of the
+// lane's COLS.  A lane reads COLS columns (one 16-byte load) of one K row
+// and multiplies them with ROWS rows of x; 8 lanes cover the block's 64
+// columns and 8 rows of one K row (bf16: 8 column groups; int8: 4 column
+// groups x 2 row halves), and the warp's 4 such groups take 4 K rows at
+// once, so a warp streams whole 128- or 64-byte row segments per load.
 // blockIdx.z takes K rows [z * ks_len, (z + 1) * ks_len); with gridDim.z > 1
-// each block writes its partial to part[z][M][N] and the last block of its
-// (x, y) tile reduces them in split order.
+// each block writes its unscaled partial to part[z][M][N] and the last
+// block of its (x, y) tile reduces them in split order.
+template <typename WT>
 __global__ void __launch_bounds__(GW * 32)
-gemm_bias_act_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+gemm_bias_act_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                     const float* __restrict__ scale,
                      const float* __restrict__ bias, float* __restrict__ y,
                      int M, int K, int N, int gelu, int ks_len,
                      float* __restrict__ part, int* __restrict__ counters) {
+  constexpr int COLS = Lane<WT>::COLS, ROWS = Lane<WT>::ROWS;
+  constexpr int LPR = GN / COLS;        // lanes across one row segment
+  constexpr int LPK = LPR * GM / ROWS;  // lanes on one K row
+  constexpr int RPW = 32 / LPK;         // K rows a warp reads at once
+  constexpr int RPB = GW * RPW;         // K rows a block reads at once
   __shared__ float xs[GM][KC];
   __shared__ float red[GW][GM][GN];
   __shared__ int am_last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = lane >> 3;         // row group of this lane, 0..3
-  const int c8 = (lane & 7) * 8;    // its 8 columns inside the block's 64
+  const int rg = lane / LPK;            // K-row group of this lane
+  const int r0 = (lane % LPK) / LPR * ROWS;  // its first x row
+  const int c8 = (lane % LPR) * COLS;   // its columns inside the block's 64
   const int n = blockIdx.x * GN + c8;
   const int m0 = blockIdx.y * GM;
   const int kbeg = blockIdx.z * ks_len;
   const int kend = min(K, kbeg + ks_len);
-  float acc[GM][8];
+  float acc[ROWS][COLS];
 #pragma unroll
-  for (int r = 0; r < GM; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < COLS; ++j) acc[r][j] = 0.f;
 
   for (int k0 = kbeg; k0 < kend; k0 += KC) {
     const int kc = min(KC, kend - k0);
@@ -82,40 +150,33 @@ gemm_bias_act_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
     if (n < N) {
 #pragma unroll 4
       for (int kk = warp * RPW + rg; kk < kc; kk += RPB) {
-        const uint4 raw =
-            __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * N + n));
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float wv[8];
+        float wv[COLS];
+        load_cols(w + (size_t)(k0 + kk) * N + n, wv);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(p2[e]);
-          wv[2 * e] = f.x;
-          wv[2 * e + 1] = f.y;
-        }
+        for (int r = 0; r < ROWS; ++r) {
+          const float xv = xs[r0 + r][kk];
 #pragma unroll
-        for (int r = 0; r < GM; ++r) {
-          const float xv = xs[r][kk];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+          for (int j = 0; j < COLS; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
         }
       }
     }
   }
-  // sum the four row groups of the warp, then the warps of the block
+  // sum the K-row groups of the warp, then the warps of the block
 #pragma unroll
-  for (int r = 0; r < GM; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < COLS; ++j) {
       float v = acc[r][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
       acc[r][j] = v;
     }
   if (rg == 0) {
 #pragma unroll
-    for (int r = 0; r < GM; ++r)
+    for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][r][c8 + j] = acc[r][j];
+      for (int j = 0; j < COLS; ++j) red[warp][r0 + r][c8 + j] = acc[r][j];
   }
   __syncthreads();
   const int splits = gridDim.z;
@@ -130,9 +191,7 @@ gemm_bias_act_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
       part[((size_t)blockIdx.z * M + m0 + r) * N + col] = s;
       continue;
     }
-    if (bias) s += bias[col];
-    if (gelu) s = 0.5f * s * (1.f + erff(s * 0.70710678118654752f));
-    y[(size_t)(m0 + r) * N + col] = s;
+    y[(size_t)(m0 + r) * N + col] = finish(s, col, scale, bias, gelu);
   }
   if (splits == 1) return;
 
@@ -151,9 +210,7 @@ gemm_bias_act_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
     float s = 0.f;
     for (int z = 0; z < splits; ++z)
       s += __ldcg(part + ((size_t)z * M + m0 + r) * N + col);
-    if (bias) s += bias[col];
-    if (gelu) s = 0.5f * s * (1.f + erff(s * 0.70710678118654752f));
-    y[(size_t)(m0 + r) * N + col] = s;
+    y[(size_t)(m0 + r) * N + col] = finish(s, col, scale, bias, gelu);
   }
   if (tid == 0) *counter = 0;  // ready for the next GEMM
 }
@@ -318,8 +375,12 @@ struct Scratch {
   int n_counters;
 };
 
-int gemm(const float* x, const bf16* w, const float* bias, float* y, int M,
-         int K, int N, int gelu, const Scratch& sc, cudaStream_t st) {
+template <typename WT>
+int gemm(const float* x, const WT* w, const float* scale, const float* bias,
+         float* y, int M, int K, int N, int gelu, const Scratch& sc,
+         cudaStream_t st) {
+  constexpr int RPB =
+      GW * 32 / (GN / Lane<WT>::COLS * GM / Lane<WT>::ROWS);  // as the kernel's
   const int nx = (N + GN - 1) / GN, ny = (M + GM - 1) / GM;
   int splits = (TARGET_BLOCKS + nx * ny - 1) / (nx * ny);
   splits = max(1, min(splits, K / KMIN));
@@ -328,8 +389,8 @@ int gemm(const float* x, const bf16* w, const float* bias, float* y, int M,
   int ks_len = (K + splits - 1) / splits;
   ks_len = (ks_len + RPB - 1) / RPB * RPB;
   splits = (K + ks_len - 1) / ks_len;
-  gemm_bias_act_kernel<<<dim3(nx, ny, splits), GW * 32, 0, st>>>(
-      x, w, bias, y, M, K, N, gelu, ks_len, sc.part, sc.counters);
+  gemm_bias_act_kernel<WT><<<dim3(nx, ny, splits), GW * 32, 0, st>>>(
+      x, w, scale, bias, y, M, K, N, gelu, ks_len, sc.part, sc.counters);
   return (int)cudaGetLastError();
 }
 
@@ -358,11 +419,83 @@ int add_ln(float* x, const float* h, const float* g, const float* b, int M,
 // One decoder step through all L layers (11 launches per layer).
 //   h [B, D] fp32, in: the step's input x, out: its hidden state;
 //   pos [B] int32; mask [B, S] fp32 additive or null;
-//   weights [L, K, N] bf16, biases and LN params [L, N] fp32;
+//   weights [L, K, N] bf16 (tts_decode_step) or int8 codes
+//   (tts_decode_step_int8, with fp32 scales [L, N] per matrix); biases and
+//   LN params [L, N] fp32;
 //   self_k/v [L, B, H, T, 64] bf16 (row pos written), cross_k/v
 //   [L, B, H, S, 64] bf16;
 //   scratch: y [B, 3D], a [B, D], t [B, D], mid [B, F] fp32, part
 //   (part_cap floats), counters (n_counters ints, zeroed here).
+template <typename WT>
+static int decode_step(
+    void* h, const void* pos, const void* mask,
+    const void* wqkv, const void* bqkv, const void* wso, const void* bso,
+    const void* wcq, const void* bcq, const void* wco, const void* bco,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* ln1g, const void* ln1b, const void* ln2g, const void* ln2b,
+    const void* ln3g, const void* ln3b,
+    const void* sqkv, const void* sso, const void* scq, const void* sco,
+    const void* s1, const void* s2,
+    void* self_k, void* self_v, void* cross_k, void* cross_v,
+    void* y, void* a, void* t, void* mid, void* part, int part_cap,
+    void* counters, int n_counters,
+    int L, int B, int H, int T, int S, int F, float eps, void* stream) {
+  constexpr int COLS = Lane<WT>::COLS;
+  const int D = H * DH;
+  if (D > LMAX || (D % COLS) || (F % COLS) || T > MAXT || S > MAXT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Scratch sc{(float*)part, part_cap, (int*)counters, n_counters};
+  TTS_TRY((int)cudaMemsetAsync(counters, 0, sizeof(int) * n_counters, st));
+  float* hp = (float*)h;
+  float* yp = (float*)y;
+  float* ap = (float*)a;
+  float* tp = (float*)t;
+  float* mp = (float*)mid;
+  const WT* Wqkv = (const WT*)wqkv;
+  const WT* Wso = (const WT*)wso;
+  const WT* Wcq = (const WT*)wcq;
+  const WT* Wco = (const WT*)wco;
+  const WT* W1 = (const WT*)w1;
+  const WT* W2 = (const WT*)w2;
+  // layer l's scales, or null for bf16 weights
+  auto sl = [](const void* s, size_t off) {
+    return s ? (const float*)s + off : (const float*)nullptr;
+  };
+  const size_t self_l = (size_t)B * H * T * DH, cross_l = (size_t)B * H * S * DH;
+  for (int l = 0; l < L; ++l) {
+    bf16* sk = (bf16*)self_k + l * self_l;
+    bf16* sv = (bf16*)self_v + l * self_l;
+    bf16* ck = (bf16*)cross_k + l * cross_l;
+    bf16* cv = (bf16*)cross_v + l * cross_l;
+    const size_t lD = (size_t)l * D, lF = (size_t)l * F;
+    TTS_TRY(gemm(hp, Wqkv + lD * 3 * D, sl(sqkv, 3 * lD),
+                 (const float*)bqkv + 3 * lD, yp, B, D, 3 * D, 0, sc, st));
+    TTS_TRY(attn(yp, 3 * D, yp + D, yp + 2 * D, 3 * D, sk, sv,
+                 (const int*)pos, nullptr, B, H, T, ap, st));
+    TTS_TRY(gemm(ap, Wso + lD * D, sl(sso, lD), (const float*)bso + lD, tp, B,
+                 D, D, 0, sc, st));
+    TTS_TRY(add_ln(hp, tp, (const float*)ln1g + lD, (const float*)ln1b + lD, B,
+                   D, eps, st));
+    TTS_TRY(gemm(hp, Wcq + lD * D, sl(scq, lD), (const float*)bcq + lD, yp, B,
+                 D, D, 0, sc, st));
+    TTS_TRY(attn(yp, D, nullptr, nullptr, 0, ck, cv, nullptr,
+                 (const float*)mask, B, H, S, ap, st));
+    TTS_TRY(gemm(ap, Wco + lD * D, sl(sco, lD), (const float*)bco + lD, tp, B,
+                 D, D, 0, sc, st));
+    TTS_TRY(add_ln(hp, tp, (const float*)ln2g + lD, (const float*)ln2b + lD, B,
+                   D, eps, st));
+    TTS_TRY(gemm(hp, W1 + lD * F, sl(s1, lF), (const float*)b1 + lF, mp, B, D,
+                 F, 1, sc, st));
+    TTS_TRY(gemm(mp, W2 + lF * D, sl(s2, lD), (const float*)b2 + lD, tp, B, F,
+                 D, 0, sc, st));
+    TTS_TRY(add_ln(hp, tp, (const float*)ln3g + lD, (const float*)ln3b + lD, B,
+                   D, eps, st));
+  }
+  return 0;
+}
+
+// bf16 weights, no scales.
 extern "C" int tts_decode_step(
     void* h, const void* pos, const void* mask,
     const void* wqkv, const void* bqkv, const void* wso, const void* bso,
@@ -374,47 +507,34 @@ extern "C" int tts_decode_step(
     void* y, void* a, void* t, void* mid, void* part, int part_cap,
     void* counters, int n_counters,
     int L, int B, int H, int T, int S, int F, float eps, void* stream) {
-  const int D = H * DH;
-  if (D > LMAX || (D % 8) || (F % 8) || T > MAXT || S > MAXT)
+  return decode_step<bf16>(
+      h, pos, mask, wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, w1, b1, w2, b2,
+      ln1g, ln1b, ln2g, ln2b, ln3g, ln3b, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, self_k, self_v, cross_k, cross_v, y, a, t, mid, part,
+      part_cap, counters, n_counters, L, B, H, T, S, F, eps, stream);
+}
+
+// int8 weight codes with one fp32 scale per output channel and matrix
+// (sqkv [L, 3D], sso, scq, sco, s2 [L, D], s1 [L, F]); D and F multiples
+// of 16.
+extern "C" int tts_decode_step_int8(
+    void* h, const void* pos, const void* mask,
+    const void* wqkv, const void* bqkv, const void* wso, const void* bso,
+    const void* wcq, const void* bcq, const void* wco, const void* bco,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* ln1g, const void* ln1b, const void* ln2g, const void* ln2b,
+    const void* ln3g, const void* ln3b,
+    const void* sqkv, const void* sso, const void* scq, const void* sco,
+    const void* s1, const void* s2,
+    void* self_k, void* self_v, void* cross_k, void* cross_v,
+    void* y, void* a, void* t, void* mid, void* part, int part_cap,
+    void* counters, int n_counters,
+    int L, int B, int H, int T, int S, int F, float eps, void* stream) {
+  if (!sqkv || !sso || !scq || !sco || !s1 || !s2)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const Scratch sc{(float*)part, part_cap, (int*)counters, n_counters};
-  TTS_TRY((int)cudaMemsetAsync(counters, 0, sizeof(int) * n_counters, st));
-  float* hp = (float*)h;
-  float* yp = (float*)y;
-  float* ap = (float*)a;
-  float* tp = (float*)t;
-  float* mp = (float*)mid;
-  const bf16* Wqkv = (const bf16*)wqkv;
-  const bf16* Wso = (const bf16*)wso;
-  const bf16* Wcq = (const bf16*)wcq;
-  const bf16* Wco = (const bf16*)wco;
-  const bf16* W1 = (const bf16*)w1;
-  const bf16* W2 = (const bf16*)w2;
-  const size_t self_l = (size_t)B * H * T * DH, cross_l = (size_t)B * H * S * DH;
-  for (int l = 0; l < L; ++l) {
-    bf16* sk = (bf16*)self_k + l * self_l;
-    bf16* sv = (bf16*)self_v + l * self_l;
-    bf16* ck = (bf16*)cross_k + l * cross_l;
-    bf16* cv = (bf16*)cross_v + l * cross_l;
-    const size_t lD = (size_t)l * D, lF = (size_t)l * F;
-    TTS_TRY(gemm(hp, Wqkv + lD * 3 * D, (const float*)bqkv + 3 * lD, yp, B, D,
-                 3 * D, 0, sc, st));
-    TTS_TRY(attn(yp, 3 * D, yp + D, yp + 2 * D, 3 * D, sk, sv,
-                 (const int*)pos, nullptr, B, H, T, ap, st));
-    TTS_TRY(gemm(ap, Wso + lD * D, (const float*)bso + lD, tp, B, D, D, 0, sc, st));
-    TTS_TRY(add_ln(hp, tp, (const float*)ln1g + lD, (const float*)ln1b + lD, B,
-                   D, eps, st));
-    TTS_TRY(gemm(hp, Wcq + lD * D, (const float*)bcq + lD, yp, B, D, D, 0, sc, st));
-    TTS_TRY(attn(yp, D, nullptr, nullptr, 0, ck, cv, nullptr,
-                 (const float*)mask, B, H, S, ap, st));
-    TTS_TRY(gemm(ap, Wco + lD * D, (const float*)bco + lD, tp, B, D, D, 0, sc, st));
-    TTS_TRY(add_ln(hp, tp, (const float*)ln2g + lD, (const float*)ln2b + lD, B,
-                   D, eps, st));
-    TTS_TRY(gemm(hp, W1 + lD * F, (const float*)b1 + lF, mp, B, D, F, 1, sc, st));
-    TTS_TRY(gemm(mp, W2 + lF * D, (const float*)b2 + lD, tp, B, F, D, 0, sc, st));
-    TTS_TRY(add_ln(hp, tp, (const float*)ln3g + lD, (const float*)ln3b + lD, B,
-                   D, eps, st));
-  }
-  return 0;
+  return decode_step<int8_t>(
+      h, pos, mask, wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, w1, b1, w2, b2,
+      ln1g, ln1b, ln2g, ln2b, ln3g, ln3b, sqkv, sso, scq, sco, s1, s2,
+      self_k, self_v, cross_k, cross_v, y, a, t, mid, part, part_cap,
+      counters, n_counters, L, B, H, T, S, F, eps, stream);
 }

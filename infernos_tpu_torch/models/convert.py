@@ -42,9 +42,15 @@ def from_jax_params(tree_of_numpy: Any, device: torch.device | str,
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
-    """Cast every floating tensor of a parameter tree to ``dtype``."""
+    """Cast every floating tensor of a parameter tree to ``dtype``, except
+    the ``scale`` of a quantized linear node (``{"w_q", "scale"[, "b"]}``,
+    ``models/quant.py``): int8 scales stay fp32, as the reference keeps
+    them in its packed weights, so a quantized tree may be cast after it
+    was quantized without narrowing them."""
     if isinstance(tree, dict):
-        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+        quantized = "w_q" in tree
+        return {k: v if quantized and k == "scale" else cast_floating(v, dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         out = [cast_floating(v, dtype) for v in tree]
         return out if isinstance(tree, list) else tuple(out)

@@ -88,7 +88,12 @@ def layer_slice(stacked, i: int):
 # -- core ops -----------------------------------------------------------------
 
 def linear(x, p: Params):
-    y = torch.matmul(x, p["w"])
+    if "w_q" in p:
+        # int8 weight-only node (models/quant.py): the codes widen to the
+        # activation type, the per-out-channel scale applies after the dot
+        y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = torch.matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y

@@ -14,6 +14,7 @@ class SpeakerBank:
         if vectors.ndim != 2:
             raise ValueError("speaker bank must be [n, dim]")
         self.vectors = vectors.astype(np.float32)
+        self._rng = np.random.default_rng(0)
 
     @classmethod
     def synthetic(cls, dim: int = 512, n: int = DEFAULT_N_SPEAKERS,
@@ -28,3 +29,6 @@ class SpeakerBank:
 
     def get(self, idx: int) -> np.ndarray:
         return self.vectors[idx % len(self.vectors)]
+
+    def rand_id(self) -> int:
+        return int(self._rng.integers(0, len(self.vectors)))

@@ -15,7 +15,7 @@ Port of ``infernos_tpu/serving/stt_engine.py`` with the same semantics:
 
 Each decode step writes its K/V row in place at the slot's position (the
 reference's per-dispatch ring and merge exist only to avoid XLA scatter
-copies).  The fallback ladder and beam rung wait for a later slice.
+copies).  The fallback ladder and beam rung are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ class STTEngineConfig:
     sample_rate: int = 16000
     max_new_tokens: int = 224
     max_prompt_tokens: int = 32
+    context_tokens: int = 224  # rolling decoder context bound (sessions)
     dtype: Any = torch.float32
     lang_tokens: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict(LANG_TOKENS_V3))
@@ -265,6 +266,30 @@ class STTEngine:
                     text_cb=lambda r: None))
                 while self._step_locked():
                     pass
+
+    def abort_all(self, reason: str = "engine failure") -> None:
+        """Supervision hook: complete every live and queued request with an
+        empty result (ns_prob=1.0, no tokens) and reset the device state, so
+        session busy/pending chains unblock and the next request starts
+        clean."""
+        with self._lock:
+            victims = [(s.req, s.t_start) for s in self.slots if s is not None]
+            with self._sub_lock:
+                victims += [(r, time.monotonic()) for r in self._pending]
+                self._pending.clear()
+            self.slots = [None] * self.ecfg.batch_slots
+            self._inflight = None
+            self._reset_state()
+        log.warning("stt engine abort (%s): flushing %d requests",
+                    reason, len(victims))
+        for req, t_start in victims:
+            res = STTResult(tokens=[], no_speech_prob=1.0,
+                            duration=len(req.audio) / self.ecfg.sample_rate,
+                            inf_time=time.monotonic() - t_start, text="")
+            try:
+                req.text_cb(res)
+            except Exception:
+                log.exception("stt abort flush callback failed")
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]

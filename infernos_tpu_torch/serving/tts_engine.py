@@ -7,19 +7,27 @@ mel frames picked by the youngest running session; paused slots keep their
 AR state frozen (their cache write at the unadvanced ``pos`` is overwritten
 on resume); stop threshold with ``min_steps``; vocode of each chunk with
 ``pre_frames`` of left context through postnet, HiFi-GAN and AmendNet; and
-a one-tick harvest pipeline.  Every decoder step goes through
+a one-tick harvest pipeline, or, with ``async_harvest``, a harvest thread
+behind a bounded dispatch pipeline.  Every decoder step goes through
 :func:`infernos_tpu_torch.ops.tts_step.fused_decode_step` (the CUDA kernel
-chain on the card) with weights packed once at init.
+chain on the card) with weights packed once at init; a parameter tree
+quantized by ``models/quant.py`` packs to int8 codes and runs the chain's
+int8 mode, its encoder, prenet and cross K/V go through ``layers.linear``.
 
-``output_norm_rms`` is carried as a config field; the gain is applied by the
-session layer, which a later slice ports.  Async harvest and the
-Griffin-Lim vocoder wait for a later slice too.
+A tick's results travel to the host in one copy each.  On the card the copy
+goes into pinned memory and is followed by a CUDA event; a harvest waits on
+that event only, never on the whole stream, so the stepping thread can
+queue the next tick while an earlier one is delivered.
+
+``output_norm_rms`` is carried as a config field; the gain is applied by
+``serving.sessions.TTSSoundDispatch``.  The Griffin-Lim vocoder is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+import queue
 import threading
 import time
 from collections import deque
@@ -32,9 +40,11 @@ from ..models import amendnet as amd
 from ..models import hifigan as hfg
 from ..models import speecht5 as st5
 from ..ops.tts_step import fused_decode_step, pack_fused_weights
+from ..utils.logging import get_logger
+from ..utils.metrics import metrics
 from ..utils.platform import default_device
 
-log = logging.getLogger("infernos_tpu_torch.serving.tts")
+log = get_logger("serving.tts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +58,12 @@ class TTSEngineConfig:
     stop_threshold: float = 0.5
     sample_rate: int = 16000
     dtype: Any = torch.float32
+    # async harvest: a dedicated thread fetches and delivers each tick's
+    # audio the moment the device finishes it, instead of at the NEXT
+    # step's dispatch (the sync one-tick pipeline), keeping up to
+    # ``max_inflight_ticks`` dispatches queued on the device
+    async_harvest: bool = False
+    max_inflight_ticks: int = 2
     # per-utterance output loudness target (0 = off); applied by sessions
     output_norm_rms: float = 0.0
 
@@ -83,6 +99,33 @@ class _Session:
         self.paused = False
 
 
+class _Fetch:
+    """One tick's ``(audio [B, n] float32, frame_valid [B, n] bool)`` on its
+    way to the host.  For CUDA tensors: asynchronous copies into pinned
+    buffers, then an event on the current stream; :meth:`get` waits on that
+    event alone.  For CPU tensors: the arrays themselves."""
+
+    __slots__ = ("audio", "valid", "event")
+
+    def __init__(self, audio: torch.Tensor, valid: torch.Tensor):
+        audio = audio.float()
+        self.event = None
+        if audio.device.type == "cuda":
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in (audio, valid)]
+            host[0].copy_(audio, non_blocking=True)
+            host[1].copy_(valid, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(audio.device))
+            audio, valid = host
+        self.audio, self.valid = audio, valid
+
+    def get(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.audio.numpy(), self.valid.numpy()
+
+
 class TTSEngine:
     """Host-side scheduler around the decode and vocode passes; drive it
     from one thread (``step()``), submit from any (``start_session``)."""
@@ -108,11 +151,21 @@ class TTSEngine:
         self._pending: deque = deque()
         self._next_sid = 0
         self._inflight = None
+        self._async = ecfg.async_harvest
+        if self._async:
+            self._hq: "queue.Queue" = queue.Queue()
+            self._sem = threading.Semaphore(ecfg.max_inflight_ticks)
+            self._inflight_n = 0
+            self._idle_cv = threading.Condition()
+            self._hthread = threading.Thread(
+                target=self._harvest_loop, daemon=True, name="tts-harvest")
+            self._hthread.start()
         self.sessions: List[Optional[_Session]] = [None] * ecfg.batch_slots
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         # weights packed ONCE: packing per step would re-copy every weight
         self.packed = pack_fused_weights(params, cfg, ecfg.dtype)
         self.tick_ms: List[float] = []  # host ms between dispatches
+        self.tick_frames: List[int] = []  # mel frames of each dispatched tick
         self._last_dispatch_t: Optional[float] = None
         self.state = self._init_state()
 
@@ -219,6 +272,12 @@ class TTSEngine:
             while self.step():
                 pass
 
+    def close(self) -> None:
+        """Stop the async harvest thread (no-op in sync mode)."""
+        if self._async:
+            self._hq.put(None)
+            self._hthread.join(timeout=2.0)
+
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.sessions) if s is None]
 
@@ -257,6 +316,7 @@ class TTSEngine:
                 ok.append((sid, ia, sa, callback, max_frames))
             except Exception:  # a poisoned session gets EOS alone
                 log.exception("tts join: quarantining poisoned session sid=%s", sid)
+                metrics.inc("tts.poisoned_sessions")
                 try:
                     callback(None)
                 except Exception:
@@ -279,6 +339,27 @@ class TTSEngine:
             self.sessions[free[i]] = _Session(
                 sid, free[i], callback,
                 max_frames or self.ecfg.max_steps * self.cfg.reduction_factor)
+
+    def abort_all(self, reason: str = "engine failure") -> None:
+        """Supervision hook: flush EOS to every live and queued session and
+        reset the engine state so the next call starts clean."""
+        with self._lock:
+            victims = [s for s in self.sessions if s is not None]
+            with self._sub_lock:
+                pend = list(self._pending)
+                self._pending.clear()
+            self.sessions = [None] * self.ecfg.batch_slots
+            self._inflight = None
+            self._last_dispatch_t = None
+            self.state = self._init_state()
+        log.warning("tts engine abort (%s): EOS to %d live + %d queued",
+                    reason, len(victims), len(pend))
+        for cb, sid in ([(s.callback, s.sid) for s in victims]
+                        + [(item[3], item[0]) for item in pend]):
+            try:
+                cb(None)
+            except Exception:
+                log.exception("tts abort EOS callback failed (sid=%s)", sid)
 
     def cancel_session(self, sid: int) -> None:
         """Barge-in: stop generating for this session (lock-free flag)."""
@@ -308,18 +389,68 @@ class TTSEngine:
 
     def step(self) -> bool:
         """Run one emission for all live sessions; deliver the previous
-        tick's audio.  Returns True while any session is live or queued."""
-        with self._lock:
-            item = self._dispatch_locked()
-            if item is None:
-                if self._inflight is not None:
-                    self._harvest(*self._inflight)
-                    self._inflight = None
-                return self.n_active > 0 or len(self._pending) > 0
-            prev, self._inflight = self._inflight, item
-            if prev is not None:
-                self._harvest(*prev)
+        tick's audio (sync mode) or hand the tick to the harvest thread
+        (async mode).  Returns True while any session is live or queued."""
+        if not self._async:
+            with self._lock:
+                return self._step_locked()
+        # async mode: bounded dispatch pipeline + harvest thread.  Acquire
+        # the inflight budget OUTSIDE the lock (the harvest thread needs the
+        # lock to release it).
+        if not self._sem.acquire(timeout=1.0):
+            # pipeline full for a whole second (slow fetch): do NOT dispatch
+            # past the inflight budget; in-flight ticks imply pending work
             return True
+        item = None
+        try:
+            with self._lock:
+                item = self._dispatch_locked()
+        finally:
+            if item is None:
+                self._sem.release()
+        if item is None:
+            # nothing runnable: wait for in-flight ticks to drain so EOS
+            # callbacks land before we report idle
+            with self._idle_cv:
+                self._idle_cv.wait_for(lambda: self._inflight_n == 0,
+                                       timeout=1.0)
+            with self._lock:
+                return self.n_active > 0 or len(self._pending) > 0
+        with self._idle_cv:
+            self._inflight_n += 1
+        self._hq.put(item)
+        return True
+
+    def _harvest_loop(self) -> None:
+        while True:
+            item = self._hq.get()
+            if item is None:
+                return
+            try:
+                item[0].get()  # waits on the tick's own event, lock-free
+                with self._lock:
+                    self._harvest(*item)
+            except Exception:
+                log.exception("tts harvest failed")
+            self._sem.release()
+            with self._idle_cv:
+                self._inflight_n -= 1
+                self._idle_cv.notify_all()
+
+    def _step_locked(self) -> bool:
+        item = self._dispatch_locked()
+        if item is None:
+            # drain the pipelined tick so the last sessions complete
+            if self._inflight is not None:
+                self._harvest(*self._inflight)
+                self._inflight = None
+            return self.n_active > 0 or len(self._pending) > 0
+        # one-tick pipeline: dispatch tick N, then harvest tick N-1 while
+        # the device computes tick N
+        prev, self._inflight = self._inflight, item
+        if prev is not None:
+            self._harvest(*prev)
+        return True
 
     @torch.no_grad()
     def _dispatch_locked(self):
@@ -337,16 +468,18 @@ class TTSEngine:
         ran_any = frame_valid.any(dim=1)  # paused/idle slots keep their ctx
         self.state.mel_ctx = torch.where(ran_any[:, None, None], new_ctx,
                                          self.state.mel_ctx)
+        self.tick_frames.append(n_frames)
         now = time.monotonic()
         if self._last_dispatch_t is not None:
             self.tick_ms.append((now - self._last_dispatch_t) * 1e3)
+            metrics.observe("tts.tick_s", now - self._last_dispatch_t)
         self._last_dispatch_t = now
-        return (audio, frame_valid), n_frames, list(self.sessions), paused
+        return _Fetch(audio, frame_valid), n_frames, list(self.sessions), paused
 
-    def _harvest(self, bufs, n_frames, snapshot, paused_at_dispatch) -> None:
+    def _harvest(self, fetch: _Fetch, n_frames, snapshot,
+                 paused_at_dispatch) -> None:
         """Deliver one tick to the sessions live at its dispatch."""
-        audio_np = bufs[0].float().cpu().numpy()
-        valid_np = bufs[1].cpu().numpy()
+        audio_np, valid_np = fetch.get()
         fs = self.voc_cfg.total_upsample
         for slot, sess in enumerate(snapshot):
             if sess is None or self.sessions[slot] is not sess:
@@ -364,7 +497,9 @@ class TTSEngine:
             if nvalid > 0:
                 if sess.t_first is None:
                     sess.t_first = time.monotonic()
-                sess.callback(audio_np[slot, : nvalid * fs])
+                    metrics.observe("tts.ttfb", sess.t_first - sess.t_start)
+                # a copy: the tick's (pinned) buffer is not kept alive
+                sess.callback(audio_np[slot, : nvalid * fs].copy())
                 sess.frames_sent += nvalid
             # run flags are monotone: a partial chunk means the stop fired
             if raw_valid < n_frames or sess.frames_sent >= sess.max_frames:

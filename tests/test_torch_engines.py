@@ -156,3 +156,54 @@ def test_tts_engine_audio_matches_jax_chunk_by_chunk():
             assert np.abs(w).max() > 1e-2  # audible, not a near-silent chunk
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-3 * np.abs(w).max())
     assert sum(c.shape[0] for c in got[1][:-1]) == 20 * 256
+
+
+def _tiny_tts_engine(**kw):
+    jparams, jcfg, jvparams, jvoc, _, table = tiny_real.load_tiny_tts("hifigan")
+    jcfg = dataclasses.replace(jcfg, speech_decoder_prenet_dropout=0.0)
+    eng = tts.TTSEngine(_port(jparams), _same_cfg(st5.SpeechT5Config, jcfg),
+                        _port(jvparams), _same_cfg(hfg.HifiGanConfig, jvoc),
+                        tts.TTSEngineConfig(**{**ECFG_KW, **kw}), device="cpu")
+    return eng, np.asarray(table[:2], np.float32)
+
+
+@pytest.mark.parametrize("max_inflight", [1, 2])
+def test_tts_engine_async_harvest_delivers_the_sync_audio(max_inflight):
+    """With a uniform chunk schedule (so that chunk sizes do not depend on
+    when the harvest thread runs) async harvest delivers exactly the sync
+    engine's chunks, and ``close`` stops its thread."""
+    outs = []
+    for kw in (dict(), dict(async_harvest=True, max_inflight_ticks=max_inflight)):
+        eng, spk = _tiny_tts_engine(chunk_schedule=(4,), **kw)
+        got = {0: [], 1: []}
+        eng.start_session(np.arange(2, 8, dtype=np.int32), spk[0], got[0].append,
+                          max_frames=12)
+        eng.start_session(np.arange(3, 6, dtype=np.int32), spk[1], got[1].append,
+                          max_frames=20)
+        for _ in range(100):
+            if not eng.step():
+                break
+        eng.close()
+        if kw:
+            eng._hthread.join(timeout=10)
+            assert not eng._hthread.is_alive()
+        assert eng.n_active == 0
+        outs.append(got)
+    for s in (0, 1):
+        assert len(outs[0][s]) == len(outs[1][s]) and outs[1][s][-1] is None
+        for a, b in zip(outs[0][s][:-1], outs[1][s][:-1]):
+            np.testing.assert_array_equal(a, b)
+    assert sum(len(c) for c in outs[1][1][:-1]) == 20 * 256
+
+
+def test_tts_engine_abort_all_ends_live_and_queued_sessions():
+    eng, spk = _tiny_tts_engine()
+    got = {i: [] for i in range(3)}  # 2 slots: the third stays queued
+    for i in range(3):
+        eng.start_session(np.arange(2, 6, dtype=np.int32), spk[i % 2], got[i].append)
+    eng.step()
+    assert eng.n_active == 2
+    eng.abort_all("test")
+    assert all(got[i] and got[i][-1] is None for i in range(3))
+    assert eng.n_active == 0 and not eng.step()
+    assert not bool(eng.state.active.any())

@@ -82,3 +82,64 @@ def test_decode_step_kernel_matches_plain(card, B, pos):
     torch.testing.assert_close(ck.self_v.float(), cp.self_v.float(), atol=3e-2, rtol=0)
     changed = (ck.self_k != init[0]).any(dim=(0, 2, 4))  # [B, T]
     assert not changed[torch.arange(T, device=card)[None] != p[:, None]].any()
+
+
+@pytest.mark.parametrize("B,pos", [(3, [0, 5, 15]), (9, [15] * 9), (5, [2, 0, 9, 15, 7])])
+def test_decode_step_int8_kernel_matches_plain(card, B, pos):
+    """int8 weight codes + per-output-channel fp32 scales through
+    ``tts_decode_step_int8``: ragged B and pos, random LN scales and shifts,
+    random (not init-time) biases so the scale-then-bias order counts."""
+    from infernos_tpu_torch.models.quant import quantize_params
+
+    cfg = st5.SpeechT5Config(hidden_size=128, decoder_layers=2,
+                             decoder_attention_heads=2, encoder_attention_heads=2,
+                             decoder_ffn_dim=256)
+    g = torch.Generator(device=card).manual_seed(100 + B)
+    params = st5.init_params(cfg, g, card, torch.bfloat16)
+    dl = params["dec_layers"]
+    for n in ("ln1", "ln2", "ln3"):
+        dl[n]["g"] = 1 + 0.1 * torch.randn(dl[n]["g"].shape, generator=g, device=card)
+        dl[n]["b"] = 0.1 * torch.randn(dl[n]["b"].shape, generator=g, device=card)
+    for node in (*dl["self_attn"].values(), *dl["cross_attn"].values(),
+                 *dl["ffn"].values()):
+        node["b"] = 0.5 * torch.randn(node["b"].shape, generator=g, device=card)
+    fw = ts.pack_fused_weights(quantize_params(params, min_size=0), cfg)
+    assert ts.is_int8(fw) and fw["sqkv"].dtype == torch.float32
+    T, S = 16, 8
+    init = [torch.randn((2, B, 2, t, 64), generator=g, device=card).to(torch.bfloat16)
+            for t in (T, T, S, S)]
+    ck = st5.DecoderCache(*(t.clone() for t in init))
+    cp = st5.DecoderCache(*(t.clone() for t in init))
+    enc_mask = torch.arange(S, device=card)[None] < torch.arange(1, B + 1, device=card)[:, None].clamp(max=S)
+    p = torch.tensor(pos, device=card)
+    x = torch.randn((B, 1, 128), generator=g, device=card)
+    before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
+    hk = ts._kernel_decode_step(fw, cfg, x, ck, p, enc_mask)
+    hp = ts._plain_decode_step(fw, cfg, x, cp, p, enc_mask)
+    torch.cuda.synchronize()
+    assert (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8) \
+        == (before[0], before[1] + 1)
+    torch.testing.assert_close(hk, hp, atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_k.float(), cp.self_k.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_v.float(), cp.self_v.float(), atol=3e-2, rtol=0)
+    changed = (ck.self_k != init[0]).any(dim=(0, 2, 4))  # [B, T]
+    assert not changed[torch.arange(T, device=card)[None] != p[:, None]].any()
+
+
+def test_decode_step_kernel_refuses_mixed_weight_types(card):
+    """int8 codes need fp32 scales and int8 everywhere; no quiet route."""
+    from infernos_tpu_torch.models.quant import quantize_params
+
+    cfg = st5.SpeechT5Config(hidden_size=128, decoder_layers=1,
+                             decoder_attention_heads=2, encoder_attention_heads=2,
+                             decoder_ffn_dim=256)
+    g = torch.Generator(device=card).manual_seed(1)
+    params = st5.init_params(cfg, g, card, torch.bfloat16)
+    fw = ts.pack_fused_weights(quantize_params(params, min_size=0), cfg)
+    cache = st5.init_cache(cfg, 2, 16, 8, card, dtype=torch.bfloat16)
+    x = torch.zeros((2, 1, 128), device=card)
+    pos = torch.zeros(2, dtype=torch.long, device=card)
+    with pytest.raises(ValueError, match="w1"):
+        ts._kernel_decode_step({**fw, "w1": fw["w1"].to(torch.bfloat16)}, cfg, x, cache, pos)
+    with pytest.raises(ValueError, match="sso"):
+        ts._kernel_decode_step({**fw, "sso": fw["sso"].to(torch.bfloat16)}, cfg, x, cache, pos)

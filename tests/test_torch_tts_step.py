@@ -139,3 +139,119 @@ def test_plain_model_step_matches_jax():
                         torch.tensor(pos), enc_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), **FP32)
     np.testing.assert_allclose(cache.self_k.numpy(), np.asarray(c_ref.self_k), **FP32)
+
+
+# -- int8-weight mode ---------------------------------------------------------
+# Set up as tests/test_tts_fused_step.py::test_fused_step_int8_matches_quantized_oracle:
+# the decoder layers quantized with min_size=0, chunk=8, pos [0, 3, 7, 12].
+
+INT8 = dict(atol=2e-2, rtol=2e-2)  # the JAX test's own tolerance
+
+
+def _int8_setup(seed):
+    from infernos_tpu.models import quant as jquant
+
+    jparams, _, arrs, mask = _setup(seed)
+    jq = dict(jparams)
+    jq["dec_layers"] = jquant.quantize_params(jparams["dec_layers"], min_size=0)
+    qparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jq), "cpu")
+    return jq, qparams, arrs, mask
+
+
+@pytest.mark.parametrize("pos", [[0, 3, 7, 12], [15, 1, 8, 4]])
+def test_int8_step_matches_jax_kernel_and_oracle(pos):
+    jq, qparams, arrs, mask = _int8_setup(11)
+    assert qparams["dec_layers"]["self_attn"]["q"]["w_q"].dtype == torch.int8
+    x = _x(11)
+    jpos = jnp.asarray(pos, jnp.int32)
+    h_ref, c_ref = jst5.decode_step(jq, JCFG, jnp.asarray(x), _jcache(arrs),
+                                    jpos, enc_mask=jnp.asarray(mask))
+    h_pal, c_pal = jax_fused_step(jq, JCFG, jnp.asarray(x), _jcache(arrs),
+                                  jpos, enc_mask=jnp.asarray(mask), chunk=8,
+                                  interpret=True)
+    cache = _tcache(arrs)
+    h = fused_decode_step(qparams, CFG, torch.from_numpy(x), cache,
+                          torch.tensor(pos), enc_mask=torch.from_numpy(mask))
+    for want_h, want_c in ((h_pal, c_pal), (h_ref, c_ref)):
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **INT8)
+        np.testing.assert_allclose(cache.self_k.numpy(), np.asarray(want_c.self_k), **INT8)
+        np.testing.assert_allclose(cache.self_v.numpy(), np.asarray(want_c.self_v), **INT8)
+    # against the oracle on the same quantized tree the plain step is fp32
+    # arithmetic in another order: far inside the kernel's tolerance
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=1e-4, rtol=1e-4)
+    changed = np.any(cache.self_k.numpy() != arrs[0], axis=(0, 2, 4))  # [B, T]
+    want = np.zeros((B, TMAX), bool)
+    want[np.arange(B), pos] = True
+    np.testing.assert_array_equal(changed, want)
+    # the model module's own plain step takes the quantized tree through linear()
+    cache2 = _tcache(arrs)
+    h2 = st5.decode_step(qparams, CFG, torch.from_numpy(x), cache2,
+                         torch.tensor(pos), enc_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(h2.numpy(), np.asarray(h_ref), **FP32)
+
+
+def test_int8_step_differs_from_dense_step():
+    """The mode is live: the quantized tree's step is not the dense one's."""
+    jparams, params, arrs, mask = _setup(11)
+    _, qparams, _, _ = _int8_setup(11)
+    x, pos = torch.from_numpy(_x(11)), torch.tensor([0, 3, 7, 12])
+    hd = fused_decode_step(params, CFG, x, _tcache(arrs), pos,
+                           enc_mask=torch.from_numpy(mask))
+    hq = fused_decode_step(qparams, CFG, x, _tcache(arrs), pos,
+                           enc_mask=torch.from_numpy(mask))
+    err = (hd - hq).abs().max().item()
+    assert 1e-4 < err < 0.2
+
+
+def test_pack_fused_weights_int8_matches_jax_layout():
+    from infernos_tpu.ops import tts_step as jts
+    from infernos_tpu_torch.ops.tts_step import is_int8
+
+    jq, qparams, _, _ = _int8_setup(5)
+    jfw = jts.pack_fused_weights(jq, JCFG)
+    fw = pack_fused_weights(qparams, CFG, torch.bfloat16)  # dtype: no effect on codes
+    assert is_int8(fw) and not is_int8(pack_fused_weights(_setup(5)[1], CFG))
+    Lyr, H, D = JCFG.decoder_layers, JCFG.decoder_attention_heads, 64
+
+    def codes(name, want):
+        assert fw[name].dtype == torch.int8 and fw[name].is_contiguous()
+        np.testing.assert_array_equal(fw[name].numpy(), np.asarray(want))
+
+    codes("wqkv", jfw.wqkv)
+    # the JAX kernel keeps the output projections head-major [L, H, Dh, D]
+    codes("wso", np.asarray(jfw.sow).reshape(Lyr, D, D))
+    codes("wco", np.asarray(jfw.cow).reshape(Lyr, D, D))
+    codes("wcq", jfw.cqw)
+    codes("w1", jfw.w1)
+    codes("w2", jfw.w2)
+    for name, want in (("sqkv", jfw.sqkv_s), ("sso", jfw.so_s), ("scq", jfw.cq_s),
+                       ("sco", jfw.co_s), ("s1", jfw.w1_s), ("s2", jfw.w2_s),
+                       ("bqkv", jfw.bqkv), ("b1", jfw.b1)):
+        assert fw[name].dtype == torch.float32
+        np.testing.assert_allclose(fw[name].numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    # the attention scale sits in the q third of the scales, not in the codes
+    sa = qparams["dec_layers"]["self_attn"]
+    np.testing.assert_array_equal(fw["wqkv"][:, :, :D].numpy(), sa["q"]["w_q"].numpy())
+    np.testing.assert_allclose(fw["sqkv"][:, :D].numpy(),
+                               sa["q"]["scale"].numpy() * (D // H) ** -0.5, rtol=1e-6)
+    np.testing.assert_allclose(fw["sqkv"][:, D:2 * D].numpy(), sa["k"]["scale"].numpy(),
+                               rtol=0, atol=0)
+
+
+def test_int8_multi_iteration_tracks_oracle_with_packed_weights():
+    jq, qparams, arrs, mask = _int8_setup(7)
+    jcache, cache = _jcache(arrs), _tcache(arrs)
+    packed = pack_fused_weights(qparams, CFG)
+    pos = np.array([0, 3, 7, 12])
+    for it in range(3):
+        x = _x(200 + it)
+        h_ref, jcache = jst5.decode_step(jq, JCFG, jnp.asarray(x), jcache,
+                                         jnp.asarray(pos, jnp.int32),
+                                         enc_mask=jnp.asarray(mask))
+        h = fused_decode_step(qparams, CFG, torch.from_numpy(x), cache,
+                              torch.from_numpy(pos),
+                              enc_mask=torch.from_numpy(mask), packed=packed)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=1e-4, rtol=1e-4)
+        pos = pos + 1
+    np.testing.assert_allclose(cache.self_v.numpy(), np.asarray(jcache.self_v),
+                               atol=1e-4, rtol=1e-4)
