@@ -22,15 +22,19 @@ Phases, each printing one JSON line:
                words, sentence regrouping -> TTSSession -> TTSEngine over an
                int8-quantized SpeechT5 with async harvest under an
                EngineDriver -> TTSSoundDispatch -> 8 kHz G.711 frames of
-               160 bytes.
+               160 bytes;
+8. launches -- the kernels and copies the card runs for one
+               ``fused_attention`` call (1) and one ``whisper.encode``,
+               counted with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Weights are random, from fixed seeds.  Every check that fails raises, so
 the script exits non-zero and prints no result line; it never falls back to
 the CPU or to a plain version.  Each kernel's launch count is set to 0
 right before the path that runs it and read right after.
-``--only kernels`` stops after the kernel phases (a quick build-and-compare
-run; it prints no result line).
+``--only kernels`` stops after the kernel phases and ``--only attention``
+after the first of them (quick build-and-compare runs; they print no result
+line).
 """
 
 from __future__ import annotations
@@ -82,6 +86,22 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn`` with the host taken out: ``iters`` calls are
+    captured into one CUDA graph and the graph's replay is timed, so a call
+    whose launch costs the host more than the kernel costs the card is not
+    timed at the host's pace."""
+    import torch
+
+    fn()  # builds, sets attributes and warms the allocator outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, 5, warmup=2) / iters
+
+
 def profile_window(profile_dir):
     """A ``torch.profiler`` window when ``--profile`` is given, else none."""
     if not profile_dir:
@@ -106,6 +126,25 @@ def profile_summary(torch, prof, wall_s: float, profile_dir, name: str) -> dict:
             "device_idle_share": 1.0 - busy_us / 1e6 / wall_s, "profile": path}
 
 
+def sass_summary(build, name: str):
+    """What the compiler made of ``csrc/<name>.cu``: how many warpgroup
+    products (``HGMMA``) and ``mma.sync`` products (``HMMA``) the built
+    library holds, and the first ``HGMMA`` line; None without ``cuobjdump``."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    ops = [line.split("*/", 1)[1].split(";")[0].strip()
+           for line in sass.splitlines() if "*/" in line and ";" in line]
+    hgmma = [o for o in ops if o.startswith("HGMMA")]
+    return {"HGMMA": len(hgmma), "HMMA": sum(o.startswith("HMMA") for o in ops),
+            "first_HGMMA": hgmma[0] if hgmma else None}
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / PEAK_BF16_FLOPS * 1e3
@@ -119,34 +158,70 @@ def phase_attention(torch, attn):
 
     g = torch.Generator(device="cuda").manual_seed(3)
     BH, Dh = 20, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def key_mask(n, S):  # key padding, a different length per row
+        lens = torch.randint(S // 2, S + 1, (n,), generator=g, device="cuda")
+        return torch.arange(S, device="cuda")[None] < lens[:, None]
+
+    def compare(what, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(math.isfinite(err) and err <= ATTN_TOL,
+              f"attention kernel {what}: max abs err {err}")
+        return err
+
     cases = []
-    for S in (1500, 250, 401):
+    # [BH, S, 64] entry; 128 and 129 sit on the edge of a key tile
+    for S in (1500, 250, 401, 128, 129):
         for masked in (False, True):
-            q, k, v = (torch.randn((BH, S, Dh), generator=g, device="cuda")
-                       .to(torch.bfloat16) for _ in range(3))
-            mask = torch.zeros((BH, S), device="cuda")
-            if masked:  # key padding, a different length per row
-                lens = torch.randint(S // 2, S + 1, (BH,), generator=g,
-                                     device="cuda")
-                mask = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
-                                   0.0, attn.NEG_INF)
-            got = attn._kernel_attention(q, k, v, mask)
-            want = attn._plain_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(math.isfinite(err) and err <= ATTN_TOL,
-                  f"attention kernel S={S} masked={masked}: max abs err {err}")
-            case = {"S": S, "masked": masked, "max_abs_err": err}
+            q, k, v = rnd(BH, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
+            zeros = torch.zeros((BH, S), device="cuda")
+            mask = torch.where(key_mask(BH, S), 0.0, attn.NEG_INF) if masked else None
+            got = attn._kernel_attention(q, k, v, mask)  # no mask: a null pointer
+            want = attn._plain_attention(q, k, v, zeros if mask is None else mask)
+            case = {"S": S, "masked": masked, "max_abs_err": compare(
+                f"S={S} masked={masked}", got, want)}
             if S == 1500 and not masked:  # the encoder's shape on the main path
                 n_ops = 4.0 * BH * S * S * Dh
-                n_bytes = 4 * BH * S * Dh * 2 + BH * S * 4
-                case["ms"] = cuda_ms(lambda: attn._kernel_attention(q, k, v, mask), 50)
-                case["plain_ms"] = cuda_ms(lambda: attn._plain_attention(q, k, v, mask), 10)
+                n_bytes = 4 * BH * S * Dh * 2
+                # device time (graph replay); eager_ms is the same call made
+                # from Python back to back, host-bound if the host is slower
+                case["ms"] = graph_ms(lambda: attn._kernel_attention(q, k, v), 50)
+                case["eager_ms"] = cuda_ms(lambda: attn._kernel_attention(q, k, v), 50)
+                case["plain_ms"] = cuda_ms(lambda: attn._plain_attention(q, k, v, zeros), 10)
                 q4, k4, v4 = (t[None] for t in (q, k, v))  # [1, BH, S, Dh]
-                case["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+                sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+                case["library_ms"] = graph_ms(sdpa, 50)
+                case["library_eager_ms"] = cuda_ms(sdpa, 50)
                 case["bound_ms"], case["bound_by"] = bound_ms(n_bytes, n_ops)
             cases.append(case)
+
+    # [B, S, D] entry, heads read in place: B 2 with a key mask per batch
+    # element, and the encoder's own call (B 1, S 1500, no mask)
+    q, k, v = rnd(2, 700, BH * Dh), rnd(2, 700, BH * Dh), rnd(2, 700, BH * Dh)
+    mask = key_mask(2, 700)
+    cases.append({"B": 2, "S": 700, "masked": True, "layout": "[B, S, D]",
+                  "max_abs_err": compare(
+                      "B=2 per-batch mask",
+                      attn.fused_attention(q, k, v, n_heads=BH, mask=mask),
+                      attn.by_heads(attn._plain_attention, q, k, v, n_heads=BH,
+                                    mask=mask))})
+    q, k, v = rnd(1, 1500, BH * Dh), rnd(1, 1500, BH * Dh), rnd(1, 1500, BH * Dh)
+    fused = lambda: attn.fused_attention(q, k, v, n_heads=BH)
+    # the same kernel behind a head split: transposed copies of q, k, v and
+    # of the output, and a zero mask repeated per head
+    split = lambda: attn.by_heads(attn._kernel_attention, q, k, v, n_heads=BH)
+    plain = attn.by_heads(attn._plain_attention, q, k, v, n_heads=BH)
+    enc = {"B": 1, "S": 1500, "masked": False, "layout": "[B, S, D]",
+           "max_abs_err": compare("[1, 1500, 1280] in place", fused(), plain),
+           "split_heads_max_abs_err": compare("[1, 1500, 1280] split", split(), plain),
+           "fused_ms": graph_ms(fused, 50), "split_heads_ms": graph_ms(split, 50),
+           "fused_eager_ms": cuda_ms(fused, 50),
+           "split_heads_eager_ms": cuda_ms(split, 50)}
+    cases.append(enc)
     main = next(c for c in cases if "ms" in c)
     emit("kernel_attention", tol=ATTN_TOL, cases=cases,
          bound_us=main["bound_ms"] * 1e3)
@@ -154,8 +229,10 @@ def phase_attention(torch, attn):
             "source": "infernos_tpu_torch/csrc/attention.cu",
             "replaces": "infernos_tpu/ops/attention.py:53",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}}
+            **{k: enc[k] for k in ("fused_ms", "split_heads_ms", "fused_eager_ms",
+                                   "split_heads_eager_ms")},
+            **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_eager_ms")}}
 
 
 # -- phase 4: TTS decoder-step kernel chain -----------------------------------
@@ -306,6 +383,12 @@ def phase_stt(torch, attn, profile_dir=None):
     enc_k = eng._encode_bucket(wav, n)
     torch.cuda.synchronize()
     enc_ms = (time.perf_counter() - t0) * 1e3
+    enc_repeat = []  # the same encode five times more: host clocks spread
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng._encode_bucket(wav, n)
+        torch.cuda.synchronize()
+        enc_repeat.append((time.perf_counter() - t0) * 1e3)
     plain = lambda q, k, v, *, n_heads, mask=None: attn.by_heads(
         attn._plain_attention, q, k, v, n_heads=n_heads, mask=mask)
     with mock.patch.object(wsp, "fused_attention", plain):
@@ -351,6 +434,7 @@ def phase_stt(torch, attn, profile_dir=None):
          steps=steps, wall_s=wall_s,
          attention_launches=launches, encode_ms=eng.encode_ms,
          encode_ms_warm=enc_ms, encode_ms_plain_attention=enc_plain_ms,
+         encode_ms_warm_repeat=enc_repeat,
          encoder_rel_err=rel, encoder_rel_tol=ENC_REL_TOL,
          latency_s=[results[i].inf_time for i in range(len(audios))],
          audio_s=[len(a) / 16000 for a in audios],
@@ -802,12 +886,58 @@ def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
          vad_ms_per_forward=vad_ms, vad_batch=n_legs, tts_steps_run=steps_run)
 
 
+# -- last phase: what the card runs for one attention call and one encode -----
+
+def device_launches(torch, fn) -> int:
+    """How many kernels and copies the card runs for one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_device_launches(torch, attn, stt_params=None):
+    """Counts, with the profiler, the kernels and copies of one
+    ``fused_attention`` call at the encoder's shape (want 1: the kernel),
+    of the same kernel behind a head split, and of one ``whisper.encode``.
+    It runs last: once the profiler has been on, every later launch of the
+    process costs the host more, which would spoil the phases' host clocks."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn((1, 1500, 1280), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = {"fused_attention": device_launches(
+               torch, lambda: attn.fused_attention(q, k, v, n_heads=20)),
+           "split_heads": device_launches(
+               torch, lambda: attn.by_heads(attn._kernel_attention, q, k, v,
+                                            n_heads=20))}
+    if stt_params is not None:
+        from infernos_tpu_torch.models import whisper as wsp
+
+        cfg = wsp.WhisperConfig()
+        mel = torch.randn((1, cfg.num_mel_bins, 3000), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            out["whisper_encode"] = device_launches(
+                torch, lambda: wsp.encode(stt_params, cfg, mel))
+        out["encoder_layers"] = cfg.encoder_layers
+    emit("device_launches", **out)
+    check(out["fused_attention"] == 1,
+          f"fused_attention ran {out['fused_attention']} kernels and copies "
+          f"on the card, want the attention kernel alone")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the engine runs; kernel tables go to DIR")
-    ap.add_argument("--only", choices=["kernels"],
-                    help="stop after the kernel phases (prints no result line)")
+    ap.add_argument("--only", choices=["attention", "kernels"],
+                    help="stop after the attention kernel's phase, or after "
+                         "all kernel phases (prints no result line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -834,12 +964,22 @@ def main(argv=None) -> int:
         os.makedirs(args.profile, exist_ok=True)
     t0 = time.perf_counter()
     build.build(verbose=True)
-    emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES))
+    sass = sass_summary(build, "attention")
+    emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
+         attention_sass=sass)
+    check(sass is None or sass["HGMMA"] > 0,
+          "the attention library holds no warpgroup product (HGMMA)")
 
-    kernels = [phase_attention(torch, attn), phase_tts_step(torch, st5, ts)]
+    kernels = [phase_attention(torch, attn)]
+    if args.only == "attention":
+        phase_device_launches(torch, attn)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    kernels.append(phase_tts_step(torch, st5, ts))
     kernels.append(phase_tts_step(torch, st5, ts, int8=True,
                                   bf16_ms=kernels[1]["ms"]))
     if args.only == "kernels":
+        phase_device_launches(torch, attn)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
     stt_launches, stt_params = phase_stt(torch, attn, args.profile)
@@ -847,6 +987,7 @@ def main(argv=None) -> int:
     check(ts.fused_decode_step.launches_int8 == 0,
           "tts: a dense tree went through the int8 chain")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
+    phase_device_launches(torch, attn, stt_params)
     # each path was driven with the counts at 0 before it and read after it
     kernels[0]["launches"] = stt_launches + turn_attn
     kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn}

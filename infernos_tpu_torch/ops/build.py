@@ -44,6 +44,13 @@ def _stale(name: str) -> bool:
     return not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src)
 
 
+def nvcc_command(src: str, out: str, extra: Sequence[str] = ()) -> list:
+    """The one compile line of every kernel source."""
+    return [_nvcc(), *extra, "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out,
+            src]
+
+
 def build(names: Sequence[str] = SOURCES, verbose: bool = False) -> float:
     """Compile the stale sources in parallel; returns the seconds spent.
 
@@ -54,16 +61,12 @@ def build(names: Sequence[str] = SOURCES, verbose: bool = False) -> float:
     todo = [n for n in names if verbose or _stale(n)]
     if not todo:
         return 0.0
-    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for n in todo:
         tmp = _lib_path(n) + f".tmp{os.getpid()}"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-               os.path.join(CSRC_DIR, f"{n}.cu")]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
+        cmd = nvcc_command(os.path.join(CSRC_DIR, f"{n}.cu"), tmp,
+                           ["-Xptxas", "-v"] if verbose else [])
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []

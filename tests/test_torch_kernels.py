@@ -4,6 +4,8 @@ These need an NVIDIA card (sm_90a) and ``nvcc``; without one they skip.
 Run them there with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
 ``chip_smoke.py`` holds the same kernels to their plain versions at the
 main path's full widths; these cases add small and ragged shapes.
+The attention kernel is also held to itself: the ``[B, S, H * 64]``
+entry, heads read in place, must give the bits of the ``[BH, S, 64]`` one.
 Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
 (2^-6) relative: the plain version computes in fp32 from the same bf16
 inputs, and a short masked row's output is as large as a V entry; fp32
@@ -46,6 +48,66 @@ def test_attention_kernel_matches_plain(card, S, masked):
     assert attn.fused_attention.launches == before + 1
     # bf16 output: one rounding step apart is 2^-7 relative
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2 ** -6)
+
+
+def _plain_bsd(q, k, v, mask_add, H):
+    """The plain version on ``[B, S, H * 64]`` with a ``[B, S]`` additive
+    mask or None (the kernel's own contract)."""
+    mask = None if mask_add is None else mask_add == 0
+    return attn.by_heads(attn._plain_attention, q, k, v, n_heads=H, mask=mask)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 401, 1500])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mask_mode", ["null", "zeros", "lens"])
+def test_attention_kernel_heads_in_place_matches_plain(card, S, B, mask_mode):
+    """``[B, S, H * 64]`` projections read in place (thirds of one fused
+    buffer, so the row stride is 3 * D), tile-edge S, a null mask pointer,
+    an all-zero mask and per-batch key lengths.  The same data through the
+    ``[BH, S, 64]`` entry must give identical bits: both are one kernel
+    doing the same arithmetic on the same values, only addresses differ."""
+    H = 4
+    g = torch.Generator(device=card).manual_seed(1000 * B + S)
+    qkv = torch.randn((B, S, 3 * H * 64), generator=g, device=card).to(torch.bfloat16)
+    q, k, v = qkv.split(H * 64, dim=-1)
+    mask_add = None
+    if mask_mode == "zeros":
+        mask_add = torch.zeros((B, S), device=card)
+    elif mask_mode == "lens":
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=card)
+        mask_add = torch.where(torch.arange(S, device=card)[None] < lens[:, None],
+                               0.0, attn.NEG_INF)
+    before = attn.fused_attention.launches
+    got = attn._kernel_attention(q, k, v, mask_add, n_heads=H)
+    torch.cuda.synchronize()
+    assert attn.fused_attention.launches == before + 1
+    assert got.shape == (B, S, H * 64) and got.is_contiguous()
+    want = _plain_bsd(q, k, v, mask_add, H)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2 ** -6)
+
+    def split(x):
+        return (x.reshape(B, S, H, 64).transpose(1, 2)
+                .reshape(B * H, S, 64).contiguous())
+
+    mask_bh = None if mask_add is None else mask_add.repeat_interleave(H, dim=0)
+    by_bh = attn._kernel_attention(split(q), split(k), split(v), mask_bh)
+    torch.cuda.synchronize()
+    assert torch.equal(by_bh, split(got))
+
+
+def test_fused_attention_on_card_is_one_launch(card):
+    """The public entry on CUDA tensors: the kernel, once, nothing around it."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn((2, 300, 1280), generator=g, device=card)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.arange(300, device=card)[None] < torch.tensor([[300], [17]], device=card)
+    for m in (None, mask):
+        before = attn.fused_attention.launches
+        got = attn.fused_attention(q, k, v, n_heads=20, mask=m)
+        torch.cuda.synchronize()
+        assert attn.fused_attention.launches == before + 1
+        want = attn.by_heads(attn._plain_attention, q, k, v, n_heads=20, mask=m)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2 ** -6)
 
 
 def test_attention_kernel_refuses_other_head_dims(card):
