@@ -9,9 +9,10 @@ Phases, each printing one JSON line:
 2. build    -- nvcc builds ``infernos_tpu_torch/csrc/*.cu`` (one process
                per source, in parallel);
 3. kernel 1 -- encoder attention kernel vs its plain PyTorch version;
-4. kernel 2 -- SpeechT5 decoder-step kernel chain vs its plain version,
-               with bf16 weights and then (``kernel_tts_step_int8``) with
-               int8 weights and per-output-channel scales;
+4. kernel 2 -- SpeechT5 decoder-step kernel (one cooperative launch per
+               step) vs its plain version, with bf16 weights and then
+               (``kernel_tts_step_int8``) with int8 weights and
+               per-output-channel scales;
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
                streams 4 sessions to >= 1 s of audio each;
@@ -24,8 +25,9 @@ Phases, each printing one JSON line:
                EngineDriver -> TTSSoundDispatch -> 8 kHz G.711 frames of
                160 bytes;
 8. launches -- the kernels and copies the card runs for one
-               ``fused_attention`` call (1) and one ``whisper.encode``,
-               counted with the profiler, last so that it slows nothing.
+               ``fused_attention`` call (1), one ``fused_decode_step`` call
+               in each weight mode (1) and one ``whisper.encode``, counted
+               with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Weights are random, from fixed seeds.  Every check that fails raises, so
@@ -93,10 +95,13 @@ def graph_ms(fn, iters: int) -> float:
     timed at the host's pace."""
     import torch
 
-    fn()  # builds, sets attributes and warms the allocator outside the capture
-    torch.cuda.synchronize()
+    side = torch.cuda.Stream()  # warmed up on the stream that captures
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # builds, sets attributes and warms the allocator and any
+    torch.cuda.synchronize()  # per-stream scratch outside the capture
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, 5, warmup=2) / iters
@@ -127,9 +132,10 @@ def profile_summary(torch, prof, wall_s: float, profile_dir, name: str) -> dict:
 
 
 def sass_summary(build, name: str):
-    """What the compiler made of ``csrc/<name>.cu``: how many warpgroup
-    products (``HGMMA``) and ``mma.sync`` products (``HMMA``) the built
-    library holds, and the first ``HGMMA`` line; None without ``cuobjdump``."""
+    """What the compiler made of ``csrc/<name>.cu``: how many instructions,
+    warpgroup products (``HGMMA``) and ``mma.sync`` products (``HMMA``) the
+    built library holds, and the first ``HGMMA`` line; None without
+    ``cuobjdump``."""
     import shutil
     import subprocess
 
@@ -141,7 +147,8 @@ def sass_summary(build, name: str):
     ops = [line.split("*/", 1)[1].split(";")[0].strip()
            for line in sass.splitlines() if "*/" in line and ";" in line]
     hgmma = [o for o in ops if o.startswith("HGMMA")]
-    return {"HGMMA": len(hgmma), "HMMA": sum(o.startswith("HMMA") for o in ops),
+    return {"instructions": len(ops), "HGMMA": len(hgmma),
+            "HMMA": sum(o.startswith("HMMA") for o in ops),
             "first_HGMMA": hgmma[0] if hgmma else None}
 
 
@@ -235,7 +242,7 @@ def phase_attention(torch, attn):
                                     "bound_by", "library_ms", "library_eager_ms")}}
 
 
-# -- phase 4: TTS decoder-step kernel chain -----------------------------------
+# -- phase 4: TTS decoder-step kernel -----------------------------------------
 
 def step_bytes(fw, cache, pos, B, with_mask=True) -> float:
     """Bytes one step must move: weights and LN/bias params once, each
@@ -259,9 +266,10 @@ def step_ops(fw, cache, pos, B) -> float:
 
 
 def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
-    """The decoder-step chain against its plain version at full width; with
+    """The decoder-step kernel against its plain version at full width; with
     ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
-    the bf16 chain's time (``bf16_ms``) is printed beside the int8 one."""
+    the bf16 kernel's time (``bf16_ms``) is printed beside the int8 one.
+    Returns the kernels row and the timed call (for the launch count)."""
     from infernos_tpu_torch.models.quant import quantize_params
 
     cfg = st5.SpeechT5Config()
@@ -289,16 +297,25 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
     lens = torch.tensor([96, 1, 50, 96, 17, 80, 96, 33], device="cuda")
     enc_mask = torch.arange(S, device="cuda")[None] < lens[:, None]
     pos0 = torch.tensor([0, 511, 1, 255, 100, 37, 400, 7], device="cuda")
-    h_err = row_err = 0.0
+    h_err = h16_err = row_err = 0.0
+    h16_ok = True
     written = torch.zeros((B, T), dtype=torch.bool, device="cuda")
     before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
     for it in range(4):  # chained: pos advances, caches carry over
         pos = pos0 + it
-        x = rnd(B, 1, cfg.hidden_size).float()  # fp32 x: h comes back in fp32
+        # fp32 x, then bf16 x as the engine gives it: h comes back in x's dtype
+        x = rnd(B, 1, cfg.hidden_size)
+        x = x.float() if it % 2 == 0 else x
         hk = ts._kernel_decode_step(fw, cfg, x, ck, pos, enc_mask)
         hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
         torch.cuda.synchronize()
-        h_err = max(h_err, (hk.float() - hp.float()).abs().max().item())
+        check(hk.dtype == x.dtype, f"{name}: hidden in {hk.dtype} for {x.dtype} x")
+        err = (hk.float() - hp.float()).abs()
+        if x.dtype == torch.float32:
+            h_err = max(h_err, err.max().item())
+        else:  # a bf16 output is one rounding of the same fp32 value: 2^-7 relative
+            h16_err = max(h16_err, err.max().item())
+            h16_ok = h16_ok and bool((err <= STEP_TOL + 2 ** -7 * hp.float().abs()).all())
         written[torch.arange(B, device="cuda"), pos.clamp(max=T - 1)] = True
     for a, b in ((ck.self_k, cp.self_k), (ck.self_v, cp.self_v)):
         row_err = max(row_err, (a.float() - b.float()).abs().max().item())
@@ -313,14 +330,21 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
     check(moved == ((0, 4) if int8 else (4, 0)),
           f"{name}: launch counts moved by {moved} (bf16, int8)")
     check(math.isfinite(h_err) and h_err <= STEP_TOL,
-          f"{name} kernel: hidden max abs err {h_err}")
+          f"{name} kernel: hidden max abs err {h_err} (fp32 x)")
+    check(math.isfinite(h16_err) and h16_ok,
+          f"{name} kernel: bf16 hidden max abs err {h16_err} (bf16 x) beyond "
+          f"{STEP_TOL} + 2^-7 relative")
     check(math.isfinite(row_err) and row_err <= STEP_TOL,
           f"{name} kernel: cache rows max abs err {row_err}")
     check(untouched, f"{name} kernel: cache rows other than pos changed")
 
     pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
     x = rnd(B, 1, cfg.hidden_size)
-    ms = cuda_ms(lambda: ts._kernel_decode_step(fw, cfg, x, ck, pos, enc_mask), 50)
+    step = lambda: ts.fused_decode_step(None, cfg, x, ck, pos, enc_mask, packed=fw)
+    # device time (50 steps replayed from one CUDA graph); eager_ms is the
+    # same call made from Python back to back, host-bound if the host is slower
+    ms = graph_ms(step, 50)
+    eager_ms = cuda_ms(step, 50)
     plain_ms = cuda_ms(lambda: ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask), 10)
     # operations at the bf16 tensor-core rate in both modes (the int8 codes
     # meet fp32 activations); either way the bytes set the bound
@@ -328,10 +352,11 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
     bms, by = bound_ms(n_bytes, step_ops(fw, ck, pos, B))
     extra = {"bf16_ms_per_step": bf16_ms} if int8 else {}
     emit("kernel_tts_step_int8" if int8 else "kernel_tts_step", tol=STEP_TOL,
-         hidden_max_abs_err=h_err,
+         hidden_max_abs_err=h_err, bf16_hidden_max_abs_err=h16_err,
+         bf16_tol=f"{STEP_TOL} + 2^-7 relative",
          cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
-         ms_per_step=ms, plain_ms_per_step=plain_ms,
-         chain_launches_per_step_fixed=ts.LAUNCHES_PER_LAYER * Lyr,
+         ms_per_step=ms, eager_ms_per_step=eager_ms, plain_ms_per_step=plain_ms,
+         launches_per_step=ts.LAUNCHES_PER_STEP,
          step_bytes=n_bytes,
          weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
          bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **extra)
@@ -339,8 +364,10 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
             "source": "infernos_tpu_torch/csrc/tts_step.cu",
             "replaces": "infernos_tpu/ops/tts_step.py:727"
                         + (" (int8w mode, :128)" if int8 else ""),
-            "max_abs_err": max(h_err, row_err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": max(h_err, row_err), "bf16_hidden_max_abs_err": h16_err,
+            "ms": ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}, step
 
 
 # -- phase 5: STT engine at whisper-large-v3 width ----------------------------
@@ -446,8 +473,8 @@ def phase_stt(torch, attn, profile_dir=None):
 # -- phase 6: TTS engine at SpeechT5 + HiFi-GAN + AmendNet width ---------------
 
 def tick_mel_rel_err(torch, eng, tts, ts, st5, sessions) -> float:
-    """One tick's mel chunk (before the vocoder) decoded with the kernel
-    chain and, from the same state and dropout draws, with the plain step;
+    """One tick's mel chunk (before the vocoder) decoded with the step
+    kernel and, from the same state and dropout draws, with the plain step;
     returns their relative L2 error.  The sessions first run two ticks, so
     every slot is past pos 0; they are cancelled and drained afterwards."""
     import dataclasses
@@ -563,8 +590,7 @@ def phase_tts(torch, ts, profile_dir=None):
         check(rms[-1] > 0.0, f"tts session {i}: silent audio")
     emit("tts", model="speecht5+hifigan+amendnet", warmup_s=warmup_s,
          ticks=ticks, wall_s=wall_s,
-         step_launches=launches,
-         chain_launches_per_step_fixed=ts.LAUNCHES_PER_LAYER * cfg.decoder_layers,
+         step_launches=launches, launches_per_step=ts.LAUNCHES_PER_STEP,
          mel_chunk_rel_err=mel_rel, mel_rel_tol=MEL_REL_TOL,
          first_chunk_s=[first[i] for i in sorted(first)],
          ms_per_tick=eng.tick_ms, samples=[samples(i) for i in chunks], rms=rms,
@@ -601,7 +627,7 @@ class _Leg:
 def phase_turn(torch, attn, ts, stt_params):
     """Build the turn's engines at full width on the card, drive the turn,
     print its line; returns the launch counts of its run (attention, int8
-    chain, bf16 chain)."""
+    step kernel, bf16 step kernel)."""
     from infernos_tpu_torch.models import amendnet as amd
     from infernos_tpu_torch.models import hifigan as hfg
     from infernos_tpu_torch.models import speecht5 as st5
@@ -853,8 +879,8 @@ def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
           f"turn: attention kernel launched {attn_launches} times for "
           f"{encodes} encodes, want {enc_layers} each")
     check(int8_steps == steps_run and int8_steps > 0,
-          f"turn: int8 chain launched {int8_steps} times for {steps_run} steps")
-    check(bf16_steps == 0, f"turn: the bf16 chain launched {bf16_steps} times")
+          f"turn: int8 step kernel launched {int8_steps} times for {steps_run} steps")
+    check(bf16_steps == 0, f"turn: the bf16 step kernel launched {bf16_steps} times")
 
     # VAD ms per batched forward: the four legs' windows in one call
     win = np.stack([codec.decode(p[:vcfg_vad.window]) for p in payloads])
@@ -901,10 +927,12 @@ def device_launches(torch, fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def phase_device_launches(torch, attn, stt_params=None):
+def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
     """Counts, with the profiler, the kernels and copies of one
     ``fused_attention`` call at the encoder's shape (want 1: the kernel),
-    of the same kernel behind a head split, and of one ``whisper.encode``.
+    of the same kernel behind a head split, of one ``fused_decode_step``
+    call at full width in each weight mode (``step_calls``: the step
+    phases' own calls; want 1 each), and of one ``whisper.encode``.
     It runs last: once the profiler has been on, every later launch of the
     process costs the host more, which would spoil the phases' host clocks."""
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -915,6 +943,8 @@ def phase_device_launches(torch, attn, stt_params=None):
            "split_heads": device_launches(
                torch, lambda: attn.by_heads(attn._kernel_attention, q, k, v,
                                             n_heads=20))}
+    for mode, fn in (step_calls or {}).items():
+        out[f"fused_decode_step_{mode}"] = device_launches(torch, fn)
     if stt_params is not None:
         from infernos_tpu_torch.models import whisper as wsp
 
@@ -929,6 +959,10 @@ def phase_device_launches(torch, attn, stt_params=None):
     check(out["fused_attention"] == 1,
           f"fused_attention ran {out['fused_attention']} kernels and copies "
           f"on the card, want the attention kernel alone")
+    for mode in step_calls or {}:
+        n = out[f"fused_decode_step_{mode}"]
+        check(n == 1, f"fused_decode_step ({mode}) ran {n} kernels and copies "
+                      f"on the card, want the step kernel alone")
 
 
 def main(argv=None) -> int:
@@ -965,29 +999,34 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     sass = sass_summary(build, "attention")
+    step_sass = sass_summary(build, "tts_step")
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
-         attention_sass=sass)
+         attention_sass=sass, tts_step_sass=step_sass)
     check(sass is None or sass["HGMMA"] > 0,
           "the attention library holds no warpgroup product (HGMMA)")
+    check(step_sass is None or step_sass["HMMA"] > 0,
+          "the decoder-step library holds no tensor-core product (HMMA)")
 
     kernels = [phase_attention(torch, attn)]
     if args.only == "attention":
         phase_device_launches(torch, attn)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    kernels.append(phase_tts_step(torch, st5, ts))
-    kernels.append(phase_tts_step(torch, st5, ts, int8=True,
-                                  bf16_ms=kernels[1]["ms"]))
+    row, bf16_step = phase_tts_step(torch, st5, ts)
+    kernels.append(row)
+    row, int8_step = phase_tts_step(torch, st5, ts, int8=True, bf16_ms=row["ms"])
+    kernels.append(row)
+    step_calls = {"bf16": bf16_step, "int8": int8_step}
     if args.only == "kernels":
-        phase_device_launches(torch, attn)
+        phase_device_launches(torch, attn, step_calls)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
     stt_launches, stt_params = phase_stt(torch, attn, args.profile)
     tts_launches = phase_tts(torch, ts, args.profile)
     check(ts.fused_decode_step.launches_int8 == 0,
-          "tts: a dense tree went through the int8 chain")
+          "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
-    phase_device_launches(torch, attn, stt_params)
+    phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
     kernels[0]["launches"] = stt_launches + turn_attn
     kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn}

@@ -2,7 +2,7 @@
 
 - ``infernos_tpu_torch`` and every submodule import neither ``jax`` nor
   anything of ``infernos_tpu`` (checked in a fresh interpreter, and in the
-  source text);
+  source text), and neither does ``chip_smoke.py``;
 - ``default_device()`` raises when there is no CUDA device;
 - on a CUDA tensor the kernel wrappers launch their kernel or raise: the
   dispatch has no route from a CUDA tensor to the plain version and no
@@ -58,7 +58,8 @@ def test_every_submodule_imports_without_jax_or_reference():
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: p.name)
 def test_no_source_imports_jax_or_reference(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -130,11 +131,13 @@ def test_kernel_decode_step_refuses_cpu_tensors_in_both_modes():
                              decoder_attention_heads=2, encoder_attention_heads=2,
                              decoder_ffn_dim=256, encoder_ffn_dim=256)
     params = st5.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache = st5.init_cache(cfg, 2, 8, 4, "cpu")
+    # shapes and dtypes the kernel takes, so only the device is refused
+    cache = st5.init_cache(cfg, 2, 8, 4, "cpu", dtype=torch.bfloat16)
     x, pos = torch.zeros((2, 1, 128)), torch.zeros(2, dtype=torch.long)
     before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
     for tree in (params, quantize_params(params, min_size=0)):
-        fw = ts.pack_fused_weights(tree, cfg)
+        fw = ts.pack_fused_weights(tree, cfg, torch.bfloat16)
+        fw.update({n: ts.pack_panels(fw[n]) for n in ts._GEMMS})  # the card's layout
         with pytest.raises(ValueError, match="CUDA"):
             ts._kernel_decode_step(fw, cfg, x, cache, pos)
         ts.fused_decode_step(tree, cfg, x, cache, pos, packed=fw)  # plain path
