@@ -8,9 +8,11 @@ Phases, each printing one JSON line:
 1. device   -- card name and power limit, TF32 off for the references;
 2. build    -- nvcc builds ``infernos_tpu_torch/csrc/*.cu`` (one process
                per source, in parallel);
-3. kernel 1 -- encoder attention kernel vs its plain PyTorch version;
+3. kernel 1 -- encoder attention kernel vs its plain PyTorch version, at
+               whisper-large-v3's shapes and at the tiny-real encoder's;
 4. kernel 2 -- SpeechT5 decoder-step kernel (one cooperative launch per
-               step) vs its plain version, with bf16 weights and then
+               step) vs its plain version, with bf16 weights (also at the
+               tiny-real TTS engine's shapes, on its weights) and then
                (``kernel_tts_step_int8``) with int8 weights and
                per-output-channel scales;
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
@@ -24,13 +26,23 @@ Phases, each printing one JSON line:
                int8-quantized SpeechT5 with async harvest under an
                EngineDriver -> TTSSoundDispatch -> 8 kHz G.711 frames of
                160 bytes;
-8. launches -- the kernels and copies the card runs for one
+8. rtp_call -- a two-leg call over real UDP on 127.0.0.1 with the trained
+               tiny-real pair from the port's loaders (bf16 on the card,
+               Griffin-Lim vocoder): two far ends stream rendered speech as
+               G.711 RTP at 20 ms pace into two RTPEndpoints on one
+               RTPIngest (jitter buffer, NeuralVAD) -> STTSession -> T2T ->
+               TTSSession (dense TTSEngine) -> the other endpoint's native
+               pacer -> RTP back; what each far end hears is transcribed and
+               must reach 0.6 word accuracy in both directions; it also
+               prints the native pacer's jitter share at 500 legs;
+9. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-Weights are random, from fixed seeds.  Every check that fails raises, so
+Weights are random, from fixed seeds, except in ``rtp_call``, which serves
+the vendored trained tiny models.  Every check that fails raises, so
 the script exits non-zero and prints no result line; it never falls back to
 the CPU or to a plain version.  Each kernel's launch count is set to 0
 right before the path that runs it and read right after.
@@ -49,6 +61,7 @@ import os
 import sys
 import threading
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -229,6 +242,15 @@ def phase_attention(torch, attn):
            "fused_eager_ms": cuda_ms(fused, 50),
            "split_heads_eager_ms": cuda_ms(split, 50)}
     cases.append(enc)
+    # the tiny-real encoder's calls: 4 heads of 64 over the 2 s and 5 s
+    # buckets (S 100 and 250), one utterance or two
+    for B, S in ((1, 100), (1, 250), (2, 250)):
+        q, k, v = rnd(B, S, 4 * Dh), rnd(B, S, 4 * Dh), rnd(B, S, 4 * Dh)
+        cases.append({"B": B, "S": S, "masked": False, "layout": "[B, S, D]",
+                      "heads": 4, "tiny_real": True, "max_abs_err": compare(
+                          f"tiny-real B={B} S={S}",
+                          attn.fused_attention(q, k, v, n_heads=4),
+                          attn.by_heads(attn._plain_attention, q, k, v, n_heads=4))})
     main = next(c for c in cases if "ms" in c)
     emit("kernel_attention", tol=ATTN_TOL, cases=cases,
          bound_us=main["bound_ms"] * 1e3)
@@ -265,26 +287,15 @@ def step_ops(fw, cache, pos, B) -> float:
     return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
 
 
-def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
-    """The decoder-step kernel against its plain version at full width; with
-    ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
-    the bf16 kernel's time (``bf16_ms``) is printed beside the int8 one.
-    Returns the kernels row and the timed call (for the launch count)."""
-    from infernos_tpu_torch.models.quant import quantize_params
+def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4):
+    """``steps`` chained steps of the kernel and of its plain version from the
+    same random bf16 caches (pos advancing, caches carried over), x fp32 on
+    even steps and bf16 on odd ones; checks the hidden states, the cache rows
+    written and that no other row changed.  Returns (hidden error with fp32
+    x, with bf16 x, cache row error, untouched, kernel cache, plain cache,
+    key mask)."""
+    from infernos_tpu_torch.models import speecht5 as st5
 
-    cfg = st5.SpeechT5Config()
-    g = torch.Generator(device="cuda").manual_seed(4)
-    params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
-    if int8:
-        params = quantize_params(params)
-    for n in ("ln1", "ln2", "ln3"):  # init is g=1, b=0: make the affine part count
-        ln = params["dec_layers"][n]
-        ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device="cuda")
-        ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device="cuda")
-    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
-    check(ts.is_int8(fw) == int8, "tts step: packed weights in the wrong mode")
-    name = "tts_decode_step_int8" if int8 else "tts_decode_step"
-    B, T, S = 8, 512, 96
     Lyr, H, Dh = cfg.decoder_layers, cfg.decoder_attention_heads, cfg.head_dim
 
     def rnd(*shape):
@@ -294,14 +305,12 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
             rnd(Lyr, B, H, S, Dh), rnd(Lyr, B, H, S, Dh)]
     ck = st5.DecoderCache(*(t.clone() for t in init))  # kernel's cache
     cp = st5.DecoderCache(*(t.clone() for t in init))  # plain version's cache
-    lens = torch.tensor([96, 1, 50, 96, 17, 80, 96, 33], device="cuda")
-    enc_mask = torch.arange(S, device="cuda")[None] < lens[:, None]
-    pos0 = torch.tensor([0, 511, 1, 255, 100, 37, 400, 7], device="cuda")
+    enc_mask = torch.arange(S, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
+    pos0 = torch.tensor(pos0, device="cuda")
     h_err = h16_err = row_err = 0.0
     h16_ok = True
     written = torch.zeros((B, T), dtype=torch.bool, device="cuda")
-    before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
-    for it in range(4):  # chained: pos advances, caches carry over
+    for it in range(steps):  # chained: pos advances, caches carry over
         pos = pos0 + it
         # fp32 x, then bf16 x as the engine gives it: h comes back in x's dtype
         x = rnd(B, 1, cfg.hidden_size)
@@ -325,10 +334,6 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
         for i, n in enumerate(("self_k", "self_v")))
     untouched = untouched and torch.equal(ck.cross_k, init[2]) \
         and torch.equal(ck.cross_v, init[3])
-    moved = (ts.fused_decode_step.launches - before[0],
-             ts.fused_decode_step.launches_int8 - before[1])
-    check(moved == ((0, 4) if int8 else (4, 0)),
-          f"{name}: launch counts moved by {moved} (bf16, int8)")
     check(math.isfinite(h_err) and h_err <= STEP_TOL,
           f"{name} kernel: hidden max abs err {h_err} (fp32 x)")
     check(math.isfinite(h16_err) and h16_ok,
@@ -337,6 +342,59 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
     check(math.isfinite(row_err) and row_err <= STEP_TOL,
           f"{name} kernel: cache rows max abs err {row_err}")
     check(untouched, f"{name} kernel: cache rows other than pos changed")
+    return h_err, h16_err, row_err, untouched, ck, cp, enc_mask
+
+
+def tiny_real_steps(torch, ts) -> dict:
+    """The bf16 step kernel against its plain version at the tiny-real TTS
+    engine's shapes (D 256, 4 heads, F 768, 3 layers; 8 slots, T 170 and
+    S 48, as phase ``rtp_call`` builds it) on the trained weights."""
+    from infernos_tpu_torch.models import tiny_real
+
+    params, cfg = tiny_real.load_tiny_tts("gl")[:2]  # bf16 on the card
+    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    h_err, h16_err, row_err = compare_steps(
+        torch, ts, cfg, fw, g, 8, RTP_TTS_STEPS, RTP_TTS_TOKENS, "tiny-real step",
+        lens=[48, 1, 20, 48, 7, 33, 48, 12], pos0=[0, 169, 1, 80, 100, 37, 150, 7])[:3]
+    return {"tiny_real_hidden_max_abs_err": h_err,
+            "tiny_real_bf16_hidden_max_abs_err": h16_err,
+            "tiny_real_cache_rows_max_abs_err": row_err}
+
+
+def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
+    """The decoder-step kernel against its plain version at full width; with
+    ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
+    the bf16 kernel's time (``bf16_ms``) is printed beside the int8 one.
+    Returns the kernels row and the timed call (for the launch count)."""
+    from infernos_tpu_torch.models.quant import quantize_params
+
+    cfg = st5.SpeechT5Config()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
+    if int8:
+        params = quantize_params(params)
+    for n in ("ln1", "ln2", "ln3"):  # init is g=1, b=0: make the affine part count
+        ln = params["dec_layers"][n]
+        ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device="cuda")
+        ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device="cuda")
+    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    check(ts.is_int8(fw) == int8, "tts step: packed weights in the wrong mode")
+    name = "tts_decode_step_int8" if int8 else "tts_decode_step"
+    B, T, S = 8, 512, 96
+    before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
+    errs = compare_steps(torch, ts, cfg, fw, g, B, T, S, name,
+                         lens=[96, 1, 50, 96, 17, 80, 96, 33],
+                         pos0=[0, 511, 1, 255, 100, 37, 400, 7])
+    moved = (ts.fused_decode_step.launches - before[0],
+             ts.fused_decode_step.launches_int8 - before[1])
+    check(moved == ((0, 4) if int8 else (4, 0)),
+          f"{name}: launch counts moved by {moved} (bf16, int8)")
+    h_err, h16_err, row_err, untouched, ck, cp, enc_mask = errs
+    tiny = {} if int8 else tiny_real_steps(torch, ts)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
     pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
     x = rnd(B, 1, cfg.hidden_size)
@@ -359,12 +417,15 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
          launches_per_step=ts.LAUNCHES_PER_STEP,
          step_bytes=n_bytes,
          weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
-         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **extra)
+         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **tiny, **extra)
     return {"name": name, "route": "cuda",
             "source": "infernos_tpu_torch/csrc/tts_step.cu",
             "replaces": "infernos_tpu/ops/tts_step.py:727"
                         + (" (int8w mode, :128)" if int8 else ""),
-            "max_abs_err": max(h_err, row_err), "bf16_hidden_max_abs_err": h16_err,
+            "max_abs_err": max(h_err, row_err,
+                               tiny.get("tiny_real_hidden_max_abs_err", 0.0),
+                               tiny.get("tiny_real_cache_rows_max_abs_err", 0.0)),
+            "bf16_hidden_max_abs_err": h16_err,
             "ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None}, step
@@ -912,6 +973,487 @@ def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
          vad_ms_per_forward=vad_ms, vad_batch=n_legs, tts_steps_run=steps_run)
 
 
+# -- phase 8: a two-leg call over RTP on the trained tiny-real pair ------------
+
+RTP_TTS_STEPS = 170  # tiny-real TTSEngineConfig (cluster/model_actors.py:156-160)
+RTP_TTS_TOKENS = 48
+ACC_MIN = 0.6  # word accuracy per direction (tests/test_lt_bilingual_e2e.py:162-163)
+SILENT = 1e-3  # a sample at or under this magnitude is silence (the same test)
+# (speaker, listener, STT language, TTS language, text, render seed, what the
+# listener must hear): the texts and seeds of test_lt_bilingual_e2e.py
+CALL_LINES = (("alice", "bob", "en", "pt", "please help now", 5, "favor ajuda agora"),
+              ("bob", "alice", "pt", "en", "quero ajuda hoje", 7, "want help today"))
+
+
+def render_speech(text: str, seed: int) -> np.ndarray:
+    """``text`` spoken in the synthetic speech language by a random speaker
+    from ``seed`` (the port's ``audio.speechlang``), at 8 kHz as a phone
+    sends it."""
+    from infernos_tpu_torch.audio import speechlang
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+
+    rng = np.random.default_rng(seed)
+    a16 = speechlang.render_text(rng, text, speechlang.Speaker.random(rng))
+    return AudioChunk(a16, 16000).resample(8000).audio
+
+
+def active_region(audio: np.ndarray, margin: int = 800) -> np.ndarray:
+    """``audio`` without its leading and trailing silence."""
+    idx = np.flatnonzero(np.abs(audio) > SILENT)
+    if idx.size == 0:
+        return audio[:0]
+    return audio[max(0, idx[0] - margin): idx[-1] + margin]
+
+
+def word_acc(ref: str, hyp: str) -> float:
+    rw, hw = ref.split(), hyp.split()
+    return sum(a == b for a, b in zip(rw, hw)) / max(len(rw), 1)
+
+
+def transcribe(stt_eng, audio8k: np.ndarray, lang: str) -> str:
+    """One request to ``stt_eng``, stepped here (its driver is stopped)."""
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+    from infernos_tpu_torch.serving.stt_engine import STTRequest
+
+    out = []
+    a16 = AudioChunk(audio8k, 8000).resample(16000).audio
+    stt_eng.submit(STTRequest(audio=a16, text_cb=out.append, lang=lang))
+    while stt_eng.step():
+        pass
+    return out[0].text if out else ""
+
+
+def tiny_real_engines(device=None):
+    """The tiny-real pair through the port's loaders, set up as the
+    reference's actors start it: an ``STTEngine`` of 8 slots on 2 s and 5 s
+    buckets, and a dense ``TTSEngine`` of 8 slots, 48 text tokens, 170 steps,
+    stop threshold 0.5, on Griffin-Lim; bf16 on the card, fp32 on the CPU.
+    Returns (stt engine, tts engine, tts tokenizer, speaker bank)."""
+    from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.serving import stt_engine as stt
+    from infernos_tpu_torch.serving import tts_engine as tts
+    from infernos_tpu_torch.serving.speakers import SpeakerBank
+
+    sp, scfg, stok, secfg = tiny_real.load_tiny_stt(device)
+    stt_eng = stt.STTEngine(sp, scfg, secfg, detokenize=stok.detokenize, device=device)
+    tp, tcfg, vp, vcfg, ttok, table = tiny_real.load_tiny_tts("gl", device)
+    ecfg = tts.TTSEngineConfig(batch_slots=8, max_text_tokens=RTP_TTS_TOKENS,
+                               max_steps=RTP_TTS_STEPS, stop_threshold=0.5,
+                               dtype=tiny_real.serving_dtype(stt_eng.device))
+    tts_eng = tts.TTSEngine(tp, tcfg, vp, vcfg, ecfg, device=device)
+    return stt_eng, tts_eng, ttok, SpeakerBank(table)
+
+
+class FarEnd:
+    """The phone at the far end of one leg: a UDP socket on 127.0.0.1 that
+    streams G.711 mu-law RTP to its leg's endpoint every 20 ms -- silence,
+    or the speech it is given -- and records every packet that comes back."""
+
+    def __init__(self, name: str):
+        import socket
+
+        from infernos_tpu_torch.audio.codecs import G711Codec
+        from infernos_tpu_torch.media.rtp import RTPPacketizer
+
+        self.name = name
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.05)
+        self.addr = self.sock.getsockname()
+        self.codec = G711Codec()
+        self.rtp = RTPPacketizer(8000, 20)
+        self.lock = threading.Lock()
+        self.rx = []  # (arrival time, payload) of every packet received
+        self.sent = 0
+        self._speech = b""
+        self.speech_last = None  # send time of the last speech packet
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=f, name=f"far-{name}-{k}", daemon=True)
+                         for k, f in (("tx", self._send_loop), ("rx", self._recv_loop))]
+        self.dest = None
+
+    def start(self, dest) -> None:
+        self.dest = dest
+        for t in self._threads:
+            t.start()
+
+    def speak(self, audio8k: np.ndarray) -> None:
+        payload = self.codec.encode(audio8k)
+        with self.lock:
+            self._speech = payload + self.codec.silence(-len(payload) % FRAME_BYTES)
+            self.speech_last = None
+
+    def speaking(self) -> bool:
+        with self.lock:
+            return bool(self._speech)
+
+    def _send_loop(self) -> None:
+        t0, k = time.monotonic(), 0
+        while not self._stop.is_set():
+            with self.lock:
+                frame, self._speech = self._speech[:FRAME_BYTES], self._speech[FRAME_BYTES:]
+            speech = bool(frame)
+            self.sock.sendto(self.rtp.next_pkt(
+                FRAME_BYTES, self.codec.ptype, frame or self.codec.silence(FRAME_BYTES)),
+                self.dest)
+            self.sent += 1
+            if speech:
+                with self.lock:
+                    self.speech_last = time.monotonic()
+            k += 1
+            lag = t0 + k * 0.020 - time.monotonic()
+            if lag > 0:
+                time.sleep(lag)
+
+    def _recv_loop(self) -> None:
+        import socket
+
+        from infernos_tpu_torch.media.rtp import RTPPacket
+
+        while not self._stop.is_set():
+            try:
+                data, _ = self.sock.recvfrom(4096)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = time.monotonic()
+            with self.lock:
+                self.rx.append((t, RTPPacket.parse(data).payload))
+
+    def received(self, since: float) -> np.ndarray:
+        with self.lock:
+            pay = b"".join(p for t, p in self.rx if t >= since)
+        return self.codec.decode(pay) if pay else np.zeros(0, np.float32)
+
+    def first_sound(self, since: float):
+        """Arrival time of the first packet since ``since`` that holds a
+        sample above silence, or None."""
+        with self.lock:
+            rx = [(t, p) for t, p in self.rx if t >= since]
+        return next((t for t, p in rx if np.abs(self.codec.decode(p)).max() > SILENT), None)
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            if t.is_alive():
+                t.join(timeout=2.0)
+        self.sock.close()
+
+
+def drive_rtp_call(stt_eng, tts_eng, tts_tok, bank, device=None,
+                   lines=CALL_LINES) -> dict:
+    """One two-leg call over real UDP on 127.0.0.1, one direction after the
+    other: the speaker's far end streams its rendered speech as G.711 RTP
+    into its leg's ``RTPEndpoint``; the shared ``RTPIngest`` runs the jitter
+    buffer and the VAD (``default_vad_factory``: ``NeuralVAD`` on
+    ``device``); each segment goes through ``STTSession`` (the speaker's
+    language) -> T2T -> numbers to words -> sentence regrouping ->
+    ``TTSSession`` -> the listener's endpoint and its writer (the native
+    pacer unless ``INFERNOS_NATIVE_PACER=0``) -> RTP to the listener's far
+    end.  Engines are stepped by ``EngineDriver``s; the sessions are wired
+    by hand, as the LiveTranslator app wires them.  Returns what each
+    direction saw and the media plane's facts; raises on a failure on any
+    thread, a driver crash or a direction that does not finish."""
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+    from infernos_tpu_torch.audio.codecs import G711Codec
+    from infernos_tpu_torch.media import native
+    from infernos_tpu_torch.media.endpoint import RTPEndpoint, RTPParams
+    from infernos_tpu_torch.media.ingest import AudioInput, RTPIngest, default_vad_factory
+    from infernos_tpu_torch.media.udp import RTPPortAllocator
+    from infernos_tpu_torch.serving import sessions as ses
+    from infernos_tpu_torch.serving.driver import EngineDriver
+    from infernos_tpu_torch.t2t import (NumbersToWords, Translator,
+                                        regroup_sentences, sent_split)
+    from infernos_tpu_torch.t2t.lexicon import LexiconBackend
+    from infernos_tpu_torch.utils.platform import default_device
+
+    # a direction's deadline: the plain fp32 path on the CPU is the slower one
+    timeout_s = 150.0 if default_device(device).type == "cpu" else 90.0
+    vad_models, errors = [], []
+
+    def vad_factory(n):
+        vad_models.append(default_vad_factory(n, device))
+        return vad_models[-1]
+
+    def guard(fn):  # a failure on a worker thread fails the call
+        def run(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+                raise
+        return run
+
+    ring = RTPIngest(vad_factory)
+    alloc = RTPPortAllocator()
+    stt_drv, tts_drv = EngineDriver(stt_eng, name="stt"), EngineDriver(tts_eng, name="tts")
+    names = sorted({ln[0] for ln in lines} | {ln[1] for ln in lines})
+    far = {n: FarEnd(n) for n in names}
+    eps = {}
+
+    def wire(line):
+        spk, lst, s_lang, t_lang, text, seed, expect = line
+        d = types.SimpleNamespace(
+            speaker=spk, listener=lst, stt_lang=s_lang, tts_lang=t_lang, text=text,
+            seed=seed, expect=expect, segments=[], results=[], dropped=[],
+            translated=[], said=[], first_s=[], says=0, says_done=0,
+            t_say=None, lock=threading.Lock())
+        stt_sess = ses.STTSession(stt_eng, keep_context=True)
+        tts_sess = ses.TTSSession(tts_eng, tts_tok, bank)
+        translator = Translator(s_lang, t_lang, backend=LexiconBackend())
+        n2w = NumbersToWords(t_lang)
+        speaker_id = bank.rand_id()
+        dst = eps[lst]
+
+        @guard
+        def soundout(item):
+            if isinstance(item, AudioChunk):
+                item.track_id = 1  # TTS on the destination leg's track 1, as the app does
+                with d.lock:
+                    if d.t_say is not None:
+                        d.first_s.append(time.monotonic() - d.t_say)
+                        d.t_say = None
+            dst.soundout(item)
+
+        @guard
+        def say_done():
+            with d.lock:
+                d.says_done += 1
+
+        @guard
+        def text_in(res):
+            with d.lock:
+                d.results.append(res)
+            text = res.text.strip()
+            if res.no_speech_prob > 0.5 or not text:  # the app's gate
+                d.dropped.append(res.text)
+                return
+            translated = translator.translate(text)
+            groups = regroup_sentences(sent_split(n2w(translated)))
+            with d.lock:
+                d.translated.append(translated)
+                d.said.append(groups)
+                d.says += 1
+                d.t_say = time.monotonic()
+            tts_sess.say(ses.TTSRequest(groups, speaker_id=speaker_id, done_cb=say_done))
+            tts_drv.kick()
+
+        @guard
+        def vad_chunk_in(chunk):
+            with d.lock:
+                d.segments.append((chunk.ipos, len(chunk.audio)))
+            stt_sess.soundin(ses.STTRequest(chunk=chunk, lang=s_lang, mode="translate",
+                                            text_cb=text_in))
+            stt_drv.kick()
+
+        tts_sess.start(soundout)
+        eps[spk].connect(AudioInput(vad_chunk_in=vad_chunk_in))
+        return d
+
+    def finished(d):
+        with d.lock:
+            return (d.segments and len(d.results) == len(d.segments)
+                    and d.says_done == d.says and not far[d.speaker].speaking()
+                    and time.monotonic() > far[d.speaker].speech_last + 1.5)
+
+    dirs, media = [], {}
+    try:
+        for t in (ring, stt_drv, tts_drv):
+            t.start()
+        for n in names:
+            eps[n] = RTPEndpoint(ring, RTPParams(far[n].addr, G711Codec), alloc)
+        for n in names:
+            far[n].start(eps[n].local_addr)
+        dirs = [wire(line) for line in lines]
+        t_call = time.monotonic()
+        for d in dirs:
+            spk, lst = far[d.speaker], far[d.listener]
+            d.speech_s = len(audio := render_speech(d.text, d.seed)) / 8000
+            t0 = time.monotonic()
+            spk.speak(audio)
+            deadline = t0 + timeout_s
+            while not errors and not finished(d):
+                check(time.monotonic() < deadline,
+                      f"rtp call {d.speaker}->{d.listener}: not done in {timeout_s} s "
+                      f"({len(d.segments)} segments, {len(d.results)} results, "
+                      f"{d.says_done} of {d.says} says done)")
+                time.sleep(0.05)
+            time.sleep(0.3)  # the last packets on their way to the listener
+            if errors:
+                raise errors[0]
+            d.t_speech_last = spk.speech_last
+            d.t_first_sound = lst.first_sound(t0)
+            d.reply_start_s = (None if d.t_first_sound is None
+                               else d.t_first_sound - d.t_speech_last)
+            d.rx = lst.received(t0)
+        media = {"call_s": time.monotonic() - t_call,
+                 "native_engine": native.available(),
+                 "writers": {n: type(ep.writer).__name__ for n, ep in eps.items()},
+                 "pacer_stats": {n: ep.writer.stats() for n, ep in eps.items()
+                                 if hasattr(ep.writer, "stats")},
+                 "far_sent_pkts": {n: f.sent for n, f in far.items()},
+                 "far_rx_pkts": {n: len(f.rx) for n, f in far.items()}}
+    finally:
+        for f in far.values():
+            f.close()
+        for ep in eps.values():
+            ep.shutdown()
+        for t in (stt_drv, tts_drv):
+            t.stop()
+        ring.stop()
+    if errors:
+        raise errors[0]
+    check(not stt_drv.crash_times and not tts_drv.crash_times,
+          f"rtp call: engine drivers crashed ({len(stt_drv.crash_times)} stt, "
+          f"{len(tts_drv.crash_times)} tts)")
+    for t in (ring, ring.vad_worker, stt_drv, tts_drv):
+        check(not t.is_alive(), f"rtp call: thread {t.name} did not stop")
+    media["vad_models"] = vad_models
+    return {"directions": dirs, **media}
+
+
+def pacer_jitter_share(n_legs: int = 500) -> dict:
+    """The native pacer loop pacing ``n_legs`` legs of 2 s from one thread
+    (the load of ``tests/test_cpacer.py``'s SLA test): the share of packets
+    sent within 2 ms of their schedule."""
+    import socket
+
+    from infernos_tpu_torch.audio.codecs import G711Codec
+    from infernos_tpu_torch.media import cpacer
+
+    loop = cpacer.NativePacerLoop()
+    rsock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rsock.bind(("127.0.0.1", 0))
+    rsock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    ssock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    codec = G711Codec()
+    t = np.arange(16000) / 8000
+    payload = codec.encode((0.4 * np.sin(2 * np.pi * 300 * t)).astype(np.float32))
+    try:
+        legs = []
+        for i in range(n_legs):
+            leg = loop.new_leg(codec, ssock.fileno(), ptime_ms=20)
+            leg.set_dest(rsock.getsockname())
+            legs.append(leg)
+        for i, leg in enumerate(legs):  # staggered starts, as calls arrive
+            leg._write_bytes(payload)
+            if i % 10 == 9:
+                time.sleep(0.02)
+        time.sleep(2.6)
+        stats = [leg.stats() for leg in legs]
+        for leg in legs:
+            leg.end()
+    finally:
+        loop.close()
+        ssock.close()
+        rsock.close()
+    total = sum(s["sent_pkts"] for s in stats)
+    late = sum(s["jit_le_5ms"] + s["jit_gt_5ms"] for s in stats)
+    return {"legs": n_legs, "packets": total, "share_le_2ms": (total - late) / max(total, 1),
+            "max_jitter_ms": max(s["jit_max_ns"] for s in stats) / 1e6}
+
+
+def phase_rtp_call(torch, attn, ts):
+    """The tiny-real pair on the card through the port's loaders (bf16) and
+    Griffin-Lim, in a two-leg call over RTP (``drive_rtp_call``); checks both
+    directions' speech and the kernels and media it went through.  Returns
+    the launch counts of its run (attention, bf16 step kernel)."""
+    from infernos_tpu_torch.audio import griffinlim as gl
+    from infernos_tpu_torch.media import cpacer, native
+    from infernos_tpu_torch.utils.platform import card_info
+
+    t0 = time.perf_counter()
+    stt_eng, tts_eng, tts_tok, bank = tiny_real_engines()
+    check(stt_eng.device.type == "cuda" and tts_eng.device.type == "cuda",
+          "rtp call: the tiny-real engines are not on the card")
+    check(stt_eng.ecfg.dtype == torch.bfloat16 and tts_eng.ecfg.dtype == torch.bfloat16,
+          "rtp call: the tiny-real engines do not serve bf16 on the card")
+    check(isinstance(tts_eng.voc_cfg, gl.GriffinLimConfig) and not ts.is_int8(tts_eng.packed),
+          "rtp call: the TTS engine is not dense bf16 on Griffin-Lim")
+    stt_eng.warmup()
+    tts_eng.warmup()
+    warm_s = time.perf_counter() - t0
+    stt_eng.encode_ms.clear()
+    tts_eng.tick_ms.clear()
+    tts_eng.tick_frames.clear()
+    tts_eng._last_dispatch_t = None
+
+    attn.fused_attention.launches = 0  # the main path starts here
+    ts.fused_decode_step.launches = 0
+    ts.fused_decode_step.launches_int8 = 0
+    call = drive_rtp_call(stt_eng, tts_eng, tts_tok, bank)
+    torch.cuda.synchronize()
+    attn_launches = attn.fused_attention.launches  # read right after it
+    bf16_steps = ts.fused_decode_step.launches
+    int8_steps = ts.fused_decode_step.launches_int8
+
+    encodes = len(stt_eng.encode_ms)
+    enc_layers = stt_eng.cfg.encoder_layers
+    steps_run = sum(n // tts_eng.cfg.reduction_factor for n in tts_eng.tick_frames)
+    check(encodes > 0 and attn_launches == enc_layers * encodes,
+          f"rtp call: attention kernel launched {attn_launches} times for "
+          f"{encodes} encodes, want {enc_layers} each")
+    check(bf16_steps == steps_run and bf16_steps > 0,
+          f"rtp call: bf16 step kernel launched {bf16_steps} times for {steps_run} steps")
+    check(int8_steps == 0, f"rtp call: the int8 step kernel launched {int8_steps} times")
+    check(call["native_engine"] and native.load_error() is None,
+          f"rtp call: native media engine not loaded ({native.load_error()})")
+    for n, w in call["writers"].items():
+        check(w == cpacer.NativeLegWriter.__name__, f"rtp call: leg {n} paced by {w}")
+        sent = call["pacer_stats"][n]["sent_pkts"]
+        check(sent > 0, f"rtp call: the native pacer sent {sent} packets on leg {n}")
+
+    out = []
+    for d in call["directions"]:
+        hyp = transcribe(stt_eng, active_region(d.rx), d.tts_lang)
+        acc = word_acc(d.expect, hyp)
+        out.append({"direction": f"{d.speaker}->{d.listener}",
+                    "langs": f"{d.stt_lang}->{d.tts_lang}", "text": d.text,
+                    "speech_s": d.speech_s, "segments": d.segments,
+                    "stt_text": [r.text for r in d.results], "dropped": d.dropped,
+                    "translated": d.translated, "said": d.said,
+                    "stt_latency_s": [r.inf_time for r in d.results],
+                    "tts_first_chunk_s": d.first_s,
+                    "reply_start_s": d.reply_start_s,
+                    "heard": hyp, "expected": d.expect, "word_acc": acc,
+                    "rx_s": len(d.rx) / 8000})
+    # information: the vocoder's device time per tick at the engine's chunk sizes
+    B, pre = tts_eng.ecfg.batch_slots, tts_eng.ecfg.pre_frames
+    g = torch.Generator(device="cuda").manual_seed(10)
+    gl_ms = {}
+    for n in sorted(set(tts_eng.ecfg.chunk_schedule)):
+        mel = torch.randn((B, pre + n, tts_eng.cfg.num_mel_bins), generator=g,
+                          device="cuda") - 3.0
+        gl_ms[n] = cuda_ms(lambda: gl.apply(tts_eng.voc_params, tts_eng.voc_cfg, mel), 10)
+    vad_model = call["vad_models"][0]
+    win = np.zeros((2, 768), np.float32)
+    slots = np.arange(2)
+    for _ in range(3):
+        vad_model(win, slots=slots)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vad_model(win, slots=slots)
+    vad_ms = (time.perf_counter() - t0) / 20 * 1e3
+    jitter = pacer_jitter_share()
+    emit("rtp_call", card=card_info(), model="tiny-real (bf16, Griffin-Lim)",
+         warmup_s=warm_s, call_s=call["call_s"], directions=out,
+         word_acc_min=ACC_MIN, attention_launches=attn_launches,
+         bf16_step_launches=bf16_steps, tts_steps_run=steps_run, stt_encodes=encodes,
+         encode_ms=stt_eng.encode_ms, tts_ms_per_tick=tts_eng.tick_ms,
+         tts_tick_frames=tts_eng.tick_frames, griffinlim_ms_by_frames=gl_ms,
+         griffinlim_slots=B, vad_ms_per_forward=vad_ms, vad_batch=2,
+         writers=call["writers"], pacer_stats=call["pacer_stats"],
+         far_sent_pkts=call["far_sent_pkts"], far_rx_pkts=call["far_rx_pkts"],
+         pacer_500_legs=jitter)
+    for o in out:
+        check(o["word_acc"] >= ACC_MIN,
+              f"rtp call {o['direction']}: heard {o['heard']!r}, expected "
+              f"{o['expected']!r} (word accuracy {o['word_acc']:.2f} < {ACC_MIN}); "
+              f"STT gave {o['stt_text']!r}, translated {o['translated']!r}")
+    return attn_launches, bf16_steps
+
+
 # -- last phase: what the card runs for one attention call and one encode -----
 
 def device_launches(torch, fn) -> int:
@@ -1026,12 +1568,15 @@ def main(argv=None) -> int:
     check(ts.fused_decode_step.launches_int8 == 0,
           "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
+    call_attn, call_bf16 = phase_rtp_call(torch, attn, ts)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
-    kernels[0]["launches"] = stt_launches + turn_attn
-    kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn}
-    kernels[1]["launches"] = tts_launches + turn_bf16
-    kernels[1]["launches_by_path"] = {"tts": tts_launches, "turn": turn_bf16}
+    kernels[0]["launches"] = stt_launches + turn_attn + call_attn
+    kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn,
+                                      "rtp_call": call_attn}
+    kernels[1]["launches"] = tts_launches + turn_bf16 + call_bf16
+    kernels[1]["launches_by_path"] = {"tts": tts_launches, "turn": turn_bf16,
+                                      "rtp_call": call_bf16}
     kernels[2]["launches"] = turn_int8
     kernels[2]["launches_by_path"] = {"turn": turn_int8}
     print(json.dumps({"kernels": kernels}), flush=True)

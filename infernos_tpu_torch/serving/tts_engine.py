@@ -20,8 +20,14 @@ that event only, never on the whole stream, so the stepping thread can
 queue the next tick while an earlier one is delivered.
 
 ``output_norm_rms`` is carried as a config field; the gain is applied by
-``serving.sessions.TTSSoundDispatch``.  The Griffin-Lim vocoder is not
-ported yet.
+``serving.sessions.TTSSoundDispatch``.  The vocoder is chosen by its
+config's type, as in the reference: a ``GriffinLimConfig`` vocodes with
+``audio/griffinlim.py`` (the tiny-real default), a ``HifiGanConfig`` with
+``models/hifigan.py``.
+
+On the card the step kernel takes 1 to ``ops.tts_step.MAX_B`` slots, so a
+CUDA engine of more slots is refused at construction (:func:`check_slots`);
+the plain CPU path takes any width, as the reference does.
 """
 
 from __future__ import annotations
@@ -36,10 +42,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..audio import griffinlim as gl
 from ..models import amendnet as amd
 from ..models import hifigan as hfg
 from ..models import speecht5 as st5
-from ..ops.tts_step import fused_decode_step, pack_fused_weights
+from ..ops.tts_step import MAX_B, fused_decode_step, pack_fused_weights
 from ..utils.logging import get_logger
 from ..utils.metrics import metrics
 from ..utils.platform import default_device
@@ -126,16 +133,27 @@ class _Fetch:
         return self.audio.numpy(), self.valid.numpy()
 
 
+def check_slots(batch_slots: int, device: torch.device) -> None:
+    """Refuse a slot count the step kernel cannot take on ``device``: on
+    a CUDA device it takes 1 to ``MAX_B`` slots; the CPU takes any."""
+    if torch.device(device).type == "cuda" and not 1 <= batch_slots <= MAX_B:
+        raise ValueError(
+            f"TTSEngine: batch_slots {batch_slots}: the decoder-step kernel "
+            f"takes 1 to {MAX_B} slots on the card")
+
+
 class TTSEngine:
     """Host-side scheduler around the decode and vocode passes; drive it
     from one thread (``step()``), submit from any (``start_session``)."""
 
     def __init__(self, params: Dict[str, Any], cfg: st5.SpeechT5Config,
-                 voc_params: Dict[str, Any], voc_cfg: hfg.HifiGanConfig,
+                 voc_params: Dict[str, Any],
+                 voc_cfg: "hfg.HifiGanConfig | gl.GriffinLimConfig",
                  ecfg: TTSEngineConfig = TTSEngineConfig(),
                  amd_params: Optional[Dict[str, Any]] = None,
                  rng_seed: int = 0, device=None):
         self.device = default_device(device)
+        check_slots(ecfg.batch_slots, self.device)
         self.cfg, self.ecfg, self.voc_cfg = cfg, ecfg, voc_cfg
         self.params, self.voc_params = params, voc_params
         self.amd_cfg = amd.AmendNetConfig(
@@ -247,7 +265,10 @@ class TTSEngine:
         pre = self.ecfg.pre_frames
         full = torch.cat([self.state.mel_ctx, mels], dim=1)  # [B, pre+C, M]
         refined = st5.postnet(self.params, self.cfg, full)
-        audio = hfg.apply(self.voc_params, self.voc_cfg, refined)
+        if isinstance(self.voc_cfg, gl.GriffinLimConfig):
+            audio = gl.apply(self.voc_params, self.voc_cfg, refined)
+        else:
+            audio = hfg.apply(self.voc_params, self.voc_cfg, refined)
         if self.amd_params is not None:
             acfg = dataclasses.replace(self.amd_cfg, chunk_frames=n_frames,
                                        pre_frames=pre, post_frames=0)

@@ -11,7 +11,12 @@
 - a quantized tree packs to int8 codes and there is no route from it to the
   bf16 kernels by dequantizing;
 - the engines, the tiered facade and ``NeuralVAD`` raise without a card
-  unless ``device="cpu"`` is passed.
+  unless ``device="cpu"`` is passed, and so do the tiny-real loaders, the
+  Griffin-Lim parameters and the ingest ring's default VAD;
+- a CUDA ``TTSEngine`` is refused at construction with more slots than the
+  step kernel takes;
+- the native media engine builds under the port's own ``build/`` and names
+  no path of the reference's ``native/`` directory.
 """
 
 import ast
@@ -54,7 +59,12 @@ def test_every_submodule_imports_without_jax_or_reference():
               "serving.stt_tiered", "serving.driver", "serving.batcher",
               "t2t.translator", "t2t.lexicon", "t2t.numbers", "t2t.sentences",
               "audio.chunk", "audio.markers", "audio.resample", "audio.codecs.g711",
-              "audio.codecs.base", "utils.threads", "utils.logging", "utils.metrics"):
+              "audio.codecs.base", "utils.threads", "utils.logging", "utils.metrics",
+              "models.bpe", "models.spm", "models.tiny_real", "audio.griffinlim",
+              "audio.signals", "audio.muxer", "audio.codecs.g722", "media.rtp",
+              "media.jitter", "media.native", "media.udp", "media.rtcp",
+              "media.pacer", "media.cpacer", "media.ingest", "media.endpoint",
+              "audio.speechlang"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -228,3 +238,124 @@ def test_sessions_run_on_whatever_engine_they_are_given():
 
     src = inspect.getsource(sessions)
     assert "device" not in src and "cuda" not in src and "import torch" not in src
+
+
+def test_chip_smoke_imports_no_jax_or_reference():
+    """``chip_smoke.py`` runs on the card's machine, which has no JAX: no
+    import of it (at any depth, in any function) names ``jax`` or the
+    reference package, and it loads no file of the repo by path."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "infernos_tpu"), n
+    assert "import_module(\"infernos_tpu." not in src
+    assert "spec_from_file_location" not in src and "sys.path" not in src
+
+
+def test_chip_smoke_call_speech_loads_no_jax_or_reference():
+    """What ``chip_smoke.py`` runs to make a far end's speech, and to load
+    the tiny-real pair, leaves no ``jax`` or reference module loaded."""
+    code = (
+        "import json, sys\n"
+        "import chip_smoke as cs\n"
+        "from infernos_tpu_torch.models import tiny_real\n"
+        "for ln in cs.CALL_LINES: assert cs.render_speech(ln[4], ln[5]).size > 0\n"
+        "if tiny_real.have_tiny_stt(): tiny_real.load_tiny_stt(device='cpu')\n"
+        "if tiny_real.have_tiny_tts(): tiny_real.load_tiny_tts(device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'infernos_tpu', 'speechlang'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_native_engine_builds_only_under_the_port():
+    """The port's loader compiles its own copy of the engine source into
+    ``infernos_tpu_torch/build/`` through a temporary name and never names
+    the reference's ``native/`` directory or its build script."""
+    from infernos_tpu_torch.media import native
+
+    assert Path(native.SRC) == PKG / "csrc" / "rtp_engine.cpp"
+    assert Path(native.LIB) == PKG / "build" / "librtpengine.so"
+    src = inspect.getsource(native)
+    assert "native/" not in src.replace("csrc/", "") and "from build" not in src
+    build_src = inspect.getsource(native.build)
+    assert ".tmp" in build_src and "os.replace(tmp, LIB)" in build_src
+    assert '"-o", tmp' in build_src
+
+
+def test_native_engine_source_is_the_reference_engine():
+    """The port's copy of the engine source differs from the reference's
+    ``native/rtp_engine.cpp`` in whole-line comments only (the paths they
+    name), so the two cannot drift apart unseen."""
+    from infernos_tpu_torch.media import native
+
+    def body(path):
+        return [ln for ln in Path(path).read_text().splitlines()
+                if not ln.lstrip().startswith("//")]
+
+    port, ref = body(native.SRC), body(ROOT / "native" / "rtp_engine.cpp")
+    assert len(port) > 500 and port == ref
+
+
+def test_cuda_tts_engine_refuses_more_slots_than_the_kernel_takes():
+    from infernos_tpu_torch.serving import tts_engine as tts
+
+    for slots in (0, ts.MAX_B + 1, 48):
+        with pytest.raises(ValueError, match=f"1 to {ts.MAX_B} slots"):
+            tts.check_slots(slots, torch.device("cuda"))
+    for slots in (1, 8, ts.MAX_B):
+        tts.check_slots(slots, torch.device("cuda"))
+    for slots in (ts.MAX_B + 1, 48):  # the plain CPU path takes any width
+        tts.check_slots(slots, torch.device("cpu"))
+    # the constructor checks before it packs a weight or makes any state
+    init = inspect.getsource(tts.TTSEngine.__init__)
+    assert init.index("check_slots(ecfg.batch_slots, self.device)") < \
+        init.index("pack_fused_weights")
+
+
+def test_cpu_tts_engine_takes_33_slots():
+    from infernos_tpu_torch.models import hifigan as hfg
+    from infernos_tpu_torch.models import speecht5 as st5
+    from infernos_tpu_torch.serving import tts_engine as tts
+
+    g = torch.Generator().manual_seed(0)
+    cfg = st5.SpeechT5Config(vocab_size=16, hidden_size=16, encoder_layers=1,
+                             encoder_attention_heads=1, encoder_ffn_dim=16,
+                             decoder_layers=1, decoder_attention_heads=1,
+                             decoder_ffn_dim=16, num_mel_bins=4,
+                             speech_decoder_prenet_units=8,
+                             speech_decoder_postnet_units=8,
+                             speaker_embedding_dim=4, max_text_positions=8,
+                             max_speech_positions=16)
+    vcfg = hfg.HifiGanConfig(model_in_dim=4, upsample_initial_channel=8)
+    eng = tts.TTSEngine(st5.init_params(cfg, g, "cpu"), cfg,
+                        hfg.init_params(vcfg, g, "cpu"), vcfg,
+                        tts.TTSEngineConfig(batch_slots=ts.MAX_B + 1,
+                                            max_text_tokens=4, max_steps=4),
+                        device="cpu")
+    assert len(eng.sessions) == ts.MAX_B + 1
+
+
+@pytest.mark.parametrize("what", ["tiny_stt", "tiny_tts", "griffinlim", "ingest"])
+def test_new_entry_points_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
+    from infernos_tpu_torch.audio import griffinlim as gl
+    from infernos_tpu_torch.media import ingest
+    from infernos_tpu_torch.models import tiny_real
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"tiny_stt": lambda **kw: tiny_real.load_tiny_stt(**kw)[3].dtype,
+            "tiny_tts": lambda **kw: tiny_real.load_tiny_tts(**kw)[2]["win"].device,
+            "griffinlim": lambda **kw: gl.init_params(gl.GriffinLimConfig(), **kw)["win"].device,
+            "ingest": lambda **kw: ingest.default_vad_factory(2, **kw).device}[what]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    got = make(device="cpu")
+    assert got in (torch.device("cpu"), torch.float32)

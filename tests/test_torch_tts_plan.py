@@ -180,6 +180,20 @@ def test_plan_covers_every_column_and_row_once_and_fits(B, int8):
     _check_plan(ts.step_plan(B, FULL["D"], FULL["F"], int8, FULL["grid"]), B, int8)
 
 
+TINY = dict(D=256, F=768, grid=132)  # the trained tiny-real TTS on an H100
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", list(range(1, 9)))
+def test_plan_found_at_tiny_real_width(B, int8):
+    """The tiny-real TTS engine's widths (D 256, F 768; up to its 8 slots)
+    get a plan that covers every column and K row once and fits, in both
+    weight modes: no 'no plan' and no 'two slots' refusal."""
+    plan = ts.step_plan(B, TINY["D"], TINY["F"], int8, TINY["grid"])
+    _check_plan(plan, B, int8)
+    assert [(g["K"], g["N"]) for g in plan["gemms"]] == list(ts.gemm_shapes(256, 768))
+
+
 @pytest.mark.parametrize("max_tiles", [96, 64, 48, None])
 @pytest.mark.parametrize("B", [1, 8, 9, 24, 25, 32])
 def test_plan_caps_cover_and_fit_or_fall_back_to_the_smallest_items(B, max_tiles):

@@ -17,12 +17,21 @@ chunk within 1e-4 and each audio chunk within 1e-3 of the reference's peak
 ``async_harvest=True`` equal to those with ``False``.  The chunk schedule
 is uniform, so that chunk sizes do not depend on when a harvest thread
 happens to run.
+
+The port's side is built from the port's own loaders and tokenizers
+(``infernos_tpu_torch.models.tiny_real`` with ``device="cpu"``, its
+``ByteLevelBPE.detokenize`` and SentencePiece tokenizer, its VAD loader);
+the reference's from the JAX package's.  The turn runs with the trained
+HiFi-GAN vocoder and once more with the Griffin-Lim vocoder (tiny-real's
+default), whose starting phase is the JAX draw in both packages (the port's
+own draw is not bit-equal to it), to the same tolerances.
 """
 
 import dataclasses
 import sys
 import threading
 import types
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -48,12 +57,12 @@ from infernos_tpu.t2t import lexicon as jlex
 from infernos_tpu_torch import t2t
 from infernos_tpu_torch.audio import chunk, markers
 from infernos_tpu_torch.audio.codecs.g711 import G711Codec
-from infernos_tpu_torch.models import hifigan as hfg
 from infernos_tpu_torch.models import quant
 from infernos_tpu_torch.models import speecht5 as st5
 from infernos_tpu_torch.models import vad
 from infernos_tpu_torch.models import whisper as wsp
-from infernos_tpu_torch.models.convert import from_jax_params
+from infernos_tpu_torch.audio import griffinlim as gl
+from infernos_tpu_torch.models import tiny_real as port_tiny_real
 from infernos_tpu_torch.ops.tts_step import is_int8
 from infernos_tpu_torch.serving import driver, sessions
 from infernos_tpu_torch.serving import stt_engine as stt
@@ -76,14 +85,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _same_cfg(cls, obj, **kw):
-    fields = {f: getattr(obj, f) for f in cls.__dataclass_fields__ if hasattr(obj, f)}
-    fields.update(kw)
-    return cls(**fields)
+def _jax_phase(shape, device):
+    """The JAX Griffin-Lim's starting phase, in place of the port's draw."""
+    ph = jax.random.uniform(jax.random.PRNGKey(12345), tuple(shape), np.float32,
+                            0.0, 2.0 * np.pi)
+    return torch.from_numpy(np.array(ph)).to(device)
 
 
 def _payload():
@@ -178,25 +184,38 @@ def _turn(ns, payload):
 
 @pytest.fixture(scope="module")
 def weights():
-    for have in (tiny_real.have_tiny_stt, tiny_real.have_tiny_tts):
+    for have in (tiny_real.have_tiny_stt, tiny_real.have_tiny_tts,
+                 port_tiny_real.have_tiny_stt, port_tiny_real.have_tiny_tts):
         if not have():
             pytest.fail("vendored tiny checkpoints missing")
     jsp, jscfg, stok, jsecfg = tiny_real.load_tiny_stt()
     jsecfg = dataclasses.replace(jsecfg, max_new_tokens=24)
-    jtp, jtcfg, jvp, jvcfg, ttok, _ = tiny_real.load_tiny_tts("hifigan")
-    jtcfg = dataclasses.replace(jtcfg, speech_decoder_prenet_dropout=0.0)
     jvadp = jvad.load_pretrained()
+    # the port's side: its own loaders and tokenizers alone
+    sp, scfg, pstok, secfg = port_tiny_real.load_tiny_stt(device="cpu")
+    secfg = dataclasses.replace(secfg, max_new_tokens=24)
+    vadp = vad.load_pretrained("cpu")
     return types.SimpleNamespace(**locals())
 
 
-@pytest.fixture(scope="module")
-def reference(weights):
-    """The turn through the JAX package's classes (run once)."""
+def _tts_pair(vocoder):
+    """(JAX, port) tiny TTS for ``vocoder``, each from its own package's
+    loader, prenet dropout off."""
+    jtp, jtcfg, jvp, jvcfg, jttok, _ = tiny_real.load_tiny_tts(vocoder)
+    jtcfg = dataclasses.replace(jtcfg, speech_decoder_prenet_dropout=0.0)
+    tp, tcfg, vp, vcfg, ttok, _ = port_tiny_real.load_tiny_tts(vocoder, device="cpu")
+    tcfg = dataclasses.replace(tcfg, speech_decoder_prenet_dropout=0.0)
+    return (jtp, jtcfg, jvp, jvcfg, jttok), (tp, tcfg, vp, vcfg, ttok)
+
+
+def _reference_turn(weights, vocoder):
+    """The turn through the JAX package's classes."""
     w = weights
-    jq = jquant.quantize_params(w.jtp, min_size=0)
+    jtp, jtcfg, jvp, jvcfg, jttok = _tts_pair(vocoder)[0]
+    jq = jquant.quantize_params(jtp, min_size=0)
     assert "w_q" in jq["dec_layers"]["self_attn"]["q"]
     mels = []
-    tts_eng = jtts.TTSEngine(jq, w.jtcfg, w.jvp, w.jvcfg,
+    tts_eng = jtts.TTSEngine(jq, jtcfg, jvp, jvcfg,
                              jtts.TTSEngineConfig(fused_step=False, **TTS_KW))
     vocode = tts_eng._vocode
 
@@ -207,7 +226,7 @@ def reference(weights):
     tts_eng._vocode = record
     ns = types.SimpleNamespace(
         codec=JG711, t2t=jt2t, lexicon=jlex, sessions=jses, driver=jdriver,
-        ve=jve, chunk=jchunk, markers=jmarkers, tokenize=w.ttok,
+        ve=jve, chunk=jchunk, markers=jmarkers, tokenize=jttok,
         vad_factory=lambda n: jvad.NumpyVAD(w.jvadp, jvad.VADConfig(), n),
         stt_eng=jtier.TieredSTTEngine(
             w.jsp, w.jscfg, jtier.TieredSTTConfig(short_max_s=2, short_slots=2,
@@ -220,16 +239,21 @@ def reference(weights):
     return seen
 
 
-def _port_turn(weights, async_harvest):
+@pytest.fixture(scope="module")
+def reference(weights):
+    return _reference_turn(weights, "hifigan")
+
+
+def _port_turn(weights, async_harvest, vocoder="hifigan"):
     w = weights
-    dense = from_jax_params(_np(w.jtp), "cpu")
-    qparams = quant.quantize_params(dense, min_size=0)
+    tp, tcfg, vp, vcfg, ttok = _tts_pair(vocoder)[1]
+    qparams = quant.quantize_params(tp, min_size=0)
     mels = []
     tts_eng = tts.TTSEngine(
-        qparams, _same_cfg(st5.SpeechT5Config, w.jtcfg), from_jax_params(_np(w.jvp), "cpu"),
-        _same_cfg(hfg.HifiGanConfig, w.jvcfg),
+        qparams, tcfg, vp, vcfg,
         tts.TTSEngineConfig(async_harvest=async_harvest, **TTS_KW), device="cpu")
     assert is_int8(tts_eng.packed)
+    assert isinstance(vcfg, gl.GriffinLimConfig) == (vocoder == "gl")
     vocode = tts_eng._vocode
 
     def record(m, n_frames):
@@ -237,16 +261,14 @@ def _port_turn(weights, async_harvest):
         return vocode(m, n_frames)
 
     tts_eng._vocode = record
-    ecfg = _same_cfg(stt.STTEngineConfig, w.jsecfg, dtype=torch.float32)
-    vparams = from_jax_params(_np(w.jvadp), "cpu")
     ns = types.SimpleNamespace(
         codec=G711Codec, t2t=t2t, lexicon=lex, sessions=sessions, driver=driver,
-        ve=ve, chunk=chunk, markers=markers, tokenize=w.ttok,
-        vad_factory=lambda n: vad.NeuralVAD(vparams, vad.VADConfig(), n, device="cpu"),
+        ve=ve, chunk=chunk, markers=markers, tokenize=ttok,
+        vad_factory=lambda n: vad.NeuralVAD(w.vadp, vad.VADConfig(), n, device="cpu"),
         stt_eng=tier.TieredSTTEngine(
-            from_jax_params(_np(w.jsp), "cpu"), _same_cfg(wsp.WhisperConfig, w.jscfg),
-            tier.TieredSTTConfig(short_max_s=2, short_slots=2, long_slots=1, base=ecfg),
-            detokenize=w.stok.detokenize, device="cpu"),
+            w.sp, w.scfg,
+            tier.TieredSTTConfig(short_max_s=2, short_slots=2, long_slots=1, base=w.secfg),
+            detokenize=w.pstok.detokenize, device="cpu"),
         tts_eng=tts_eng)
     seen = _turn(ns, _payload())
     seen.mels = mels
@@ -258,9 +280,25 @@ def port_runs(weights):
     return {False: _port_turn(weights, False), True: _port_turn(weights, True)}
 
 
+@pytest.fixture(scope="module")
+def griffinlim_runs(weights):
+    """The turn with the Griffin-Lim vocoder in both packages; the port's
+    vocoder starts from the JAX package's phase draw."""
+    with mock.patch.object(gl, "init_phase", _jax_phase):
+        got = _port_turn(weights, False, vocoder="gl")
+    return _reference_turn(weights, "gl"), got
+
+
 @pytest.mark.parametrize("async_harvest", [False, True], ids=["sync", "async"])
 def test_turn_matches_reference(reference, port_runs, async_harvest):
-    want, got = reference, port_runs[async_harvest]
+    _assert_turn_matches(reference, port_runs[async_harvest])
+
+
+def test_griffinlim_turn_matches_reference(griffinlim_runs):
+    _assert_turn_matches(*griffinlim_runs)
+
+
+def _assert_turn_matches(want, got):
     assert len(want.segments) == 1 and got.segments == want.segments
     assert len(want.results) == 1
     assert got.results[0].tokens == want.results[0].tokens
