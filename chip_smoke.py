@@ -35,17 +35,36 @@ Phases, each printing one JSON line:
                pacer -> RTP back; what each far end hears is transcribed and
                must reach 0.6 word accuracy in both directions; it also
                prints the native pacer's jitter share at 500 legs;
-9. launches -- the kernels and copies the card runs for one
+9. sip_call -- the same bilingual call through the daemon's own layers, in
+               process: the YAML config read by ``InfernConfig``,
+               ``build_cluster`` (RTP, LiveTranslator and SIP actors; STT and
+               two TTS model actors on tiny-real, bf16), a ``FakePhone``
+               calling the SIP port and a ``FarEnd`` the app dials; both
+               directions must reach 0.6 word accuracy; then both TTS
+               engines say at once (one stream, one step scratch), and each
+               say must equal the same say made alone from the same
+               generator state; Bob must get the BYE and no actor thread
+               may be left;
+10. daemon  -- ``python -m infernos_tpu_torch -f cfg.yaml`` in a subprocess
+               at full width (Whisper-large-v3 tiered, two SpeechT5 +
+               HiFi-GAN + AmendNet engines, bf16, zero weights): two
+               concurrent calls bridged to a ``FarEnd``, paced RTP to every
+               far end, STT and TTS work on ``/metrics``, no driver crash,
+               exit 0 within 30 s of SIGTERM;
+11. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-Weights are random, from fixed seeds, except in ``rtp_call``, which serves
-the vendored trained tiny models.  Every check that fails raises, so
-the script exits non-zero and prints no result line; it never falls back to
-the CPU or to a plain version.  Each kernel's launch count is set to 0
-right before the path that runs it and read right after.
+Weights are random, from fixed seeds, except in ``rtp_call`` and
+``sip_call``, which serve the vendored trained tiny models, and ``daemon``,
+which starts with zero weights as the actors do without a checkpoint.
+Every check that fails raises, so the script exits non-zero and prints no
+result line; it never falls back to the CPU or to a plain version.  Each
+kernel's launch count is set to 0 right before the path that runs it and
+read right after (in ``daemon``, by the daemon's process over its life,
+written to a file when it exits).
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs; they print no result
 line).
@@ -1044,10 +1063,11 @@ def tiny_real_engines(device=None):
     return stt_eng, tts_eng, ttok, SpeakerBank(table)
 
 
-class FarEnd:
+class RtpFarEnd:
     """The phone at the far end of one leg: a UDP socket on 127.0.0.1 that
     streams G.711 mu-law RTP to its leg's endpoint every 20 ms -- silence,
-    or the speech it is given -- and records every packet that comes back."""
+    or the speech it is given -- and keeps every packet that comes back in
+    ``rx_packets``, as the SIP phones of ``bench.phone`` do."""
 
     def __init__(self, name: str):
         import socket
@@ -1063,7 +1083,7 @@ class FarEnd:
         self.codec = G711Codec()
         self.rtp = RTPPacketizer(8000, 20)
         self.lock = threading.Lock()
-        self.rx = []  # (arrival time, payload) of every packet received
+        self.rx_packets = []  # (arrival time, RTP packet) of every packet received
         self.sent = 0
         self._speech = b""
         self.speech_last = None  # send time of the last speech packet
@@ -1108,8 +1128,6 @@ class FarEnd:
     def _recv_loop(self) -> None:
         import socket
 
-        from infernos_tpu_torch.media.rtp import RTPPacket
-
         while not self._stop.is_set():
             try:
                 data, _ = self.sock.recvfrom(4096)
@@ -1117,21 +1135,7 @@ class FarEnd:
                 continue
             except OSError:
                 return
-            t = time.monotonic()
-            with self.lock:
-                self.rx.append((t, RTPPacket.parse(data).payload))
-
-    def received(self, since: float) -> np.ndarray:
-        with self.lock:
-            pay = b"".join(p for t, p in self.rx if t >= since)
-        return self.codec.decode(pay) if pay else np.zeros(0, np.float32)
-
-    def first_sound(self, since: float):
-        """Arrival time of the first packet since ``since`` that holds a
-        sample above silence, or None."""
-        with self.lock:
-            rx = [(t, p) for t, p in self.rx if t >= since]
-        return next((t for t, p in rx if np.abs(self.codec.decode(p)).max() > SILENT), None)
+            self.rx_packets.append((time.monotonic(), data))
 
     def close(self) -> None:
         self._stop.set()
@@ -1139,6 +1143,54 @@ class FarEnd:
             if t.is_alive():
                 t.join(timeout=2.0)
         self.sock.close()
+
+
+def rx_audio(phone, n_before: int = 0) -> np.ndarray:
+    """The audio of the RTP packets ``phone`` (an ``RtpFarEnd``, or a
+    ``FakePhone`` or ``FarEnd`` of ``bench.phone``) received after its
+    first ``n_before``."""
+    from infernos_tpu_torch.media.rtp import RTPPacket
+
+    pkts = list(phone.rx_packets[n_before:])
+    if not pkts:
+        return np.zeros(0, np.float32)
+    return np.concatenate([phone.codec.decode(RTPPacket.parse(d).payload)
+                           for _, d in pkts])
+
+
+def first_sound_at(phone, n_before: int = 0):
+    """Arrival time of the first packet after the first ``n_before`` that
+    holds a sample above silence, or None."""
+    from infernos_tpu_torch.media.rtp import RTPPacket
+
+    for t, d in list(phone.rx_packets[n_before:]):
+        if np.abs(phone.codec.decode(RTPPacket.parse(d).payload)).max() > SILENT:
+            return t
+    return None
+
+
+def sip_options(addr, timeout: float = 2.0):
+    """The status code a SIP ``OPTIONS`` to ``addr`` is answered with, or
+    None when nothing answers within ``timeout`` seconds."""
+    import asyncio
+
+    from infernos_tpu_torch.sip.message import NameAddr, SipURI
+    from infernos_tpu_torch.sip.stack import SIPStack
+
+    async def ask():
+        stack = SIPStack(("127.0.0.1", 0))
+        await stack.start()
+        try:
+            msg = stack.make_request("OPTIONS", SipURI(host=addr[0], port=addr[1]),
+                                     NameAddr(SipURI(user="probe", host="127.0.0.1")),
+                                     NameAddr(SipURI(host=addr[0])))
+            return (await stack.send_request(msg, tuple(addr), timeout=timeout)).code
+        except (TimeoutError, asyncio.TimeoutError, OSError):
+            return None
+        finally:
+            stack.close()
+
+    return asyncio.run(ask())
 
 
 def drive_rtp_call(stt_eng, tts_eng, tts_tok, bank, device=None,
@@ -1189,7 +1241,7 @@ def drive_rtp_call(stt_eng, tts_eng, tts_tok, bank, device=None,
     alloc = RTPPortAllocator()
     stt_drv, tts_drv = EngineDriver(stt_eng, name="stt"), EngineDriver(tts_eng, name="tts")
     names = sorted({ln[0] for ln in lines} | {ln[1] for ln in lines})
-    far = {n: FarEnd(n) for n in names}
+    far = {n: RtpFarEnd(n) for n in names}
     eps = {}
 
     def wire(line):
@@ -1270,7 +1322,7 @@ def drive_rtp_call(stt_eng, tts_eng, tts_tok, bank, device=None,
         for d in dirs:
             spk, lst = far[d.speaker], far[d.listener]
             d.speech_s = len(audio := render_speech(d.text, d.seed)) / 8000
-            t0 = time.monotonic()
+            t0, n_before = time.monotonic(), len(lst.rx_packets)
             spk.speak(audio)
             deadline = t0 + timeout_s
             while not errors and not finished(d):
@@ -1283,17 +1335,17 @@ def drive_rtp_call(stt_eng, tts_eng, tts_tok, bank, device=None,
             if errors:
                 raise errors[0]
             d.t_speech_last = spk.speech_last
-            d.t_first_sound = lst.first_sound(t0)
+            d.t_first_sound = first_sound_at(lst, n_before)
             d.reply_start_s = (None if d.t_first_sound is None
                                else d.t_first_sound - d.t_speech_last)
-            d.rx = lst.received(t0)
+            d.rx = rx_audio(lst, n_before)
         media = {"call_s": time.monotonic() - t_call,
                  "native_engine": native.available(),
                  "writers": {n: type(ep.writer).__name__ for n, ep in eps.items()},
                  "pacer_stats": {n: ep.writer.stats() for n, ep in eps.items()
                                  if hasattr(ep.writer, "stats")},
                  "far_sent_pkts": {n: f.sent for n, f in far.items()},
-                 "far_rx_pkts": {n: len(f.rx) for n, f in far.items()}}
+                 "far_rx_pkts": {n: len(f.rx_packets) for n, f in far.items()}}
     finally:
         for f in far.values():
             f.close()
@@ -1454,6 +1506,569 @@ def phase_rtp_call(torch, attn, ts):
     return attn_launches, bf16_steps
 
 
+# -- phase 9: the bilingual LiveTranslator call through SIP, in process -------
+
+SIP_CALL_PORTS = {"sip": 25075, "bob": 25085, "rtp": (34500, 34900)}
+# a say with both TTS engines stepping one stream vs the same say alone, from
+# the same generator state: of the say's peak (one bf16 rounding of slack)
+TOGETHER_TOL = 1e-2
+
+
+def lt_config(sip_port: int, bob_port: int, rtp, metrics_port=None) -> str:
+    """The daemon config of the bilingual call (``tests/test_lt_bilingual_e2e.py``):
+    inbound calls go to LiveTranslator profile ``c1`` (en <-> pt), which
+    dials ``sip/bob`` at ``bob_port``."""
+    text = (f"sip:\n  settings:\n    bind: 127.0.0.1:{sip_port}\n  profiles:\n"
+            f"    inbound:\n      sink: apps/live_translator/c1\n"
+            f"    bob:\n      sip_server: 127.0.0.1:{bob_port}\n"
+            f"rtp:\n  settings:\n    min_port: {rtp[0]}\n    max_port: {rtp[1]}\n"
+            f"apps:\n  live_translator:\n    profiles:\n      c1:\n"
+            f"        stt_langs: ['en', 'pt']\n        tts_langs: ['pt', 'en']\n"
+            f"        outbound: sip/bob;cld=900\n")
+    if metrics_port:
+        text += f"metrics:\n  port: {metrics_port}\n  bind: 127.0.0.1\n"
+    return text
+
+
+def wait_reply(phone, n_before: int, timeout: float) -> bool:
+    """Until a burst of sound has come in after the first ``n_before``
+    packets and no packet has arrived for a second (the pacer stops when a
+    say's audio ends); False at ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        pkts = phone.rx_packets[n_before:]
+        if pkts and time.monotonic() - pkts[-1][0] > 1.0:
+            audio = rx_audio(phone, n_before)
+            if len(audio) > 4000 and np.abs(audio).max() > SILENT:
+                return True
+        time.sleep(0.1)
+    return False
+
+
+def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
+    """The bilingual LiveTranslator call through SIP, in process: the YAML
+    config is read by ``InfernConfig`` and ``build_cluster`` spawns the
+    daemon's actor graph (RTP -> LiveTranslator -> SIP) with the trained
+    tiny-real models (``INFERNOS_MODEL_MODE=tiny-real``) on ``device``.  A
+    ``FakePhone`` (Alice) calls the SIP port; the app dials Bob, a
+    ``FarEnd``; each line of ``CALL_LINES`` is spoken in turn by its
+    speaker's phone as paced G.711 RTP, and what the listener hears is
+    kept.  With ``together``, the two TTS actors then say each line's
+    expected text at once through their session API (both engines
+    stepping one stream).  ``on_ready()`` runs once the cluster is up and
+    warm, right before the first call.  Alice hangs up at the end; Bob
+    must get the BYE, and ``stop_all()`` must leave no actor thread.
+    Returns, for each direction, the STT texts (the app's debug log), the
+    STT results, their mean latency and the TTS first chunk (the engines'
+    ``stt.audio_s``, ``stt.inf_time`` and ``tts.ttfb`` over the direction),
+    what the listener heard and the reply start; and the engines."""
+    import logging
+    import tempfile
+
+    from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
+    from infernos_tpu_torch.cluster.actors import lookup, stop_all
+    from infernos_tpu_torch.config import InfernConfig
+    from infernos_tpu_torch.main import build_cluster
+    from infernos_tpu_torch.utils.metrics import metrics
+    from infernos_tpu_torch.utils.metrics_export import render_prometheus
+    from infernos_tpu_torch.utils.platform import default_device
+
+    timeout_s = 150.0 if default_device(device).type == "cpu" else 60.0
+    ports = SIP_CALL_PORTS
+    stt_texts = []
+
+    class SttLog(logging.Handler):
+        """Keeps the text of each STT result the app logs (``LTSession.text_in``)."""
+
+        def emit(self, record):
+            if str(record.msg).startswith("LTSession %s %s: stt "):
+                stt_texts.append(record.args[2])
+
+    def registry() -> dict:  # the process's metrics, named as /metrics names them
+        return prom_values(render_prometheus(metrics.snapshot()))
+
+    app_log, stt_log = logging.getLogger("infernos_tpu_torch.apps.lt"), SttLog()
+    app_level = app_log.level
+    alice = bob = None
+    out = {}
+    with mock.patch.dict(os.environ, {"INFERNOS_MODEL_MODE": "tiny-real"}):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "lt.yaml")
+            with open(path, "w") as f:
+                f.write(lt_config(ports["sip"], ports["bob"], ports["rtp"]))
+            iconf = InfernConfig(path)
+        try:
+            app_log.addHandler(stt_log)
+            app_log.setLevel(logging.DEBUG)
+            t0 = time.perf_counter()
+            handles = build_cluster(iconf, tiny=True, bind_ip="127.0.0.1", device=device)
+            out["boot_s"] = time.perf_counter() - t0
+            stt = lookup("stt:c1")._actor.engine
+            tts = {lang: lookup(f"tts:c1:{lang}")._actor.engine for lang in ("pt", "en")}
+            stt.encode_ms.clear()
+            for eng in tts.values():
+                eng.tick_ms.clear()
+                eng.tick_frames.clear()
+            out.update(stt=stt, tts=tts, handles=sorted(handles))
+            bob = FarEnd(port=ports["bob"])
+            alice = FakePhone()
+            if on_ready is not None:
+                on_ready()
+            t_call = time.monotonic()
+            alice.call(iconf.sip_conf.bind)
+            check(alice.uac.connected, "sip call: the call was not answered")
+            check(bob.answered.wait(20.0), "sip call: the app did not dial Bob")
+            phones = {"alice": alice, "bob": bob}
+            dirs = []
+            for spk, lst, s_lang, t_lang, text, seed, expect in CALL_LINES:
+                listener = phones[lst]
+                n_before, n_texts, base = len(listener.rx_packets), len(stt_texts), registry()
+                audio = render_speech(text, seed)
+                t_send = time.monotonic()
+                if spk == "alice":
+                    alice.stream_bg(audio, then_silence=True)
+                else:
+                    check(bob.last_rtp_src is not None,
+                          "sip call: no media reached Bob's leg")
+                    bob.stream_bg(audio, bob.last_rtp_src)
+                # the last speech packet's send time at the phones' 20 ms pace
+                t_last = t_send + (len(audio) // FRAME_BYTES - 1) * 0.020
+                heard = wait_reply(listener, n_before, timeout_s)
+                phones[spk].stop_streaming()
+                check(heard, f"sip call {spk}->{lst}: no reply within {timeout_s} s")
+                t_first = first_sound_at(listener, n_before)
+                # stt.inf_time is observed by the engine and again by the
+                # app, with the same value: its mean is the results' mean
+                work = calls_work(base, registry())
+                dirs.append(types.SimpleNamespace(
+                    speaker=spk, listener=lst, stt_lang=s_lang, tts_lang=t_lang,
+                    text=text, expect=expect, speech_s=len(audio) / 8000,
+                    stt_text=stt_texts[n_texts:], stt_results=work["stt_audio_s"]["count"],
+                    stt_latency_s=work["stt_inf_time"]["mean"],
+                    says=work["tts_ttfb"]["count"], first_chunk_s=work["tts_ttfb"]["mean"],
+                    rx=rx_audio(listener, n_before),
+                    reply_start_s=None if t_first is None else t_first - t_last))
+            out["call_s"] = time.monotonic() - t_call
+            out["directions"] = dirs
+            if together:
+                out["together"] = say_together(timeout_s)
+            check(bool(bob.stack.dialogs), "sip call: Bob holds no dialog")
+            alice.hangup()
+            deadline = time.monotonic() + 10.0
+            while bob.stack.dialogs and time.monotonic() < deadline:
+                time.sleep(0.05)
+            out["bob_got_bye"] = not bob.stack.dialogs  # his UAS tore down
+        finally:
+            for ph in (alice, bob):
+                if ph is not None:
+                    ph.close()
+            stop_all()
+            app_log.removeHandler(stt_log)
+            app_log.setLevel(app_level)
+    time.sleep(0.5)
+    out["actor_threads_left"] = [t.name for t in threading.enumerate()
+                                 if t.name.startswith("actor:") and t.is_alive()]
+    return out
+
+
+def say_together(timeout_s: float) -> list:
+    """Each line's expected text said at once by the TTS actor of its
+    language (one session each, speaker 0), through the actors' session
+    API, then again by each actor alone from the same generator state.  At
+    once, both engines' steps go through the step kernel on one stream and
+    share its scratch; alone, they do not, so the two runs must give the
+    same audio.  Returns each say's audio at 8 kHz, as a phone hears it, in
+    both runs."""
+    from infernos_tpu_torch.cluster.actors import lookup
+    from infernos_tpu_torch.serving import sessions as ses
+
+    says = []
+    for *_, t_lang, _text, _seed, expect in CALL_LINES:
+        h = lookup(f"tts:c1:{t_lang}")
+        says.append(types.SimpleNamespace(lang=t_lang, expect=expect, handle=h,
+                                          gen=h._actor.engine._gen))
+
+    def run(group):
+        for say in group:
+            say.chunks, say.done = [], threading.Event()
+            say.sid = say.handle.ask_sync("new_tts_session")
+
+            def soundout(item, say=say):
+                if hasattr(item, "on_proc"):  # the say's end marker
+                    item.on_proc()
+                else:
+                    say.chunks.append(item.resample(8000).audio)
+
+            say.handle.ask_sync("tts_session_start", say.sid, soundout)
+        t0 = time.monotonic()
+        for say in group:  # queued back to back: the engines step together
+            say.handle.call("tts_session_say", say.sid,
+                            ses.TTSRequest(say.expect, speaker_id=0, done_cb=say.done.set))
+        for say in group:
+            check(say.done.wait(timeout_s), f"sip call: the {say.lang} say did not end")
+            say.handle.ask_sync("tts_session_end", say.sid)
+        return time.monotonic() - t0, [np.concatenate(say.chunks) if say.chunks
+                                       else np.zeros(0, np.float32) for say in group]
+
+    states = [say.gen.get_state() for say in says]
+    t_together, together = run(says)
+    alone = []
+    for say, state in zip(says, states):
+        say.gen.set_state(state)
+        alone.append(run([say])[1][0])
+    return [{"lang": say.lang, "expect": say.expect, "s": t_together,
+             "audio": a, "alone": b} for say, a, b in zip(says, together, alone)]
+
+
+def phase_sip_call(torch, attn, ts):
+    """Phase ``sip_call``: :func:`drive_sip_call` on the card (bf16,
+    Griffin-Lim), with both TTS engines saying at once at its end.  Checks
+    both directions' speech, the teardown and the kernels the call went
+    through; returns the launch counts of its run (attention, bf16 step)."""
+    from infernos_tpu_torch.audio import griffinlim as gl
+    from infernos_tpu_torch.utils.platform import card_info
+
+    def zero_counts():  # the main path starts here, the cluster warm
+        attn.fused_attention.launches = 0
+        ts.fused_decode_step.launches = 0
+        ts.fused_decode_step.launches_int8 = 0
+
+    call = drive_sip_call(together=True, on_ready=zero_counts)
+    torch.cuda.synchronize()
+    attn_launches = attn.fused_attention.launches  # read right after it
+    bf16_steps = ts.fused_decode_step.launches
+    int8_steps = ts.fused_decode_step.launches_int8
+
+    stt, tts = call["stt"], call["tts"]
+    check(stt.device.type == "cuda" and stt.ecfg.dtype == torch.bfloat16,
+          "sip call: the STT actor does not serve bf16 on the card")
+    for lang, eng in tts.items():
+        check(eng.device.type == "cuda" and eng.ecfg.dtype == torch.bfloat16
+              and isinstance(eng.voc_cfg, gl.GriffinLimConfig) and not ts.is_int8(eng.packed),
+              f"sip call: the {lang} TTS actor is not dense bf16 on Griffin-Lim")
+    encodes = len(stt.encode_ms)
+    steps = {lang: sum(n // eng.cfg.reduction_factor for n in eng.tick_frames)
+             for lang, eng in tts.items()}
+    check(encodes > 0 and attn_launches == stt.cfg.encoder_layers * encodes,
+          f"sip call: attention kernel launched {attn_launches} times for "
+          f"{encodes} encodes, want {stt.cfg.encoder_layers} each")
+    check(all(steps.values()) and bf16_steps == sum(steps.values()),
+          f"sip call: bf16 step kernel launched {bf16_steps} times for {steps} steps")
+    check(int8_steps == 0, f"sip call: the int8 step kernel launched {int8_steps} times")
+    check(call["bob_got_bye"], "sip call: Bob did not get the BYE")
+    check(not call["actor_threads_left"],
+          f"sip call: actor threads left after stop_all: {call['actor_threads_left']}")
+
+    out = []
+    for d in call["directions"]:
+        hyp = transcribe(stt, active_region(d.rx), d.tts_lang)
+        out.append({"direction": f"{d.speaker}->{d.listener}",
+                    "langs": f"{d.stt_lang}->{d.tts_lang}", "text": d.text,
+                    "speech_s": d.speech_s, "stt_text": d.stt_text,
+                    "stt_results": d.stt_results, "stt_latency_s": d.stt_latency_s,
+                    "says": d.says, "tts_first_chunk_s": d.first_chunk_s,
+                    "reply_start_s": d.reply_start_s, "heard": hyp,
+                    "expected": d.expect, "word_acc": word_acc(d.expect, hyp),
+                    "rx_s": len(d.rx) / 8000})
+    together = []
+    for say in call["together"]:
+        a, b = say["audio"], say["alone"]
+        hyp = transcribe(stt, active_region(a), say["lang"])
+        together.append({"lang": say["lang"], "expected": say["expect"], "heard": hyp,
+                         "word_acc": word_acc(say["expect"], hyp), "done_s": say["s"],
+                         "samples": [len(a), len(b)],
+                         "max_abs_diff_alone": float(np.abs(a - b).max())
+                         if len(a) == len(b) and len(a) else None,
+                         "peak": float(np.abs(a).max()) if len(a) else 0.0})
+    emit("sip_call", card=card_info(), model="tiny-real (bf16, Griffin-Lim)",
+         boot_s=call["boot_s"], call_s=call["call_s"], actors=call["handles"],
+         directions=out, both_engines_at_once=together, word_acc_min=ACC_MIN,
+         attention_launches=attn_launches, bf16_step_launches=bf16_steps,
+         tts_steps_run=steps, stt_encodes=encodes, encode_ms=stt.encode_ms,
+         tts_ms_per_tick={lang: eng.tick_ms for lang, eng in tts.items()},
+         bob_got_bye=call["bob_got_bye"])
+    for o in out:
+        check(o["word_acc"] >= ACC_MIN,
+              f"sip call {o['direction']}: heard {o['heard']!r}, expected "
+              f"{o['expected']!r} (word accuracy {o['word_acc']:.2f} < {ACC_MIN})")
+    for o in together:  # the words are information: a say is a sample
+        check(o["max_abs_diff_alone"] is not None and o["peak"] > SILENT
+              and o["max_abs_diff_alone"] <= TOGETHER_TOL * o["peak"],
+              f"sip call: the {o['lang']} say at once differs from the say alone: {o}")
+    return attn_launches, bf16_steps
+
+
+# -- phase 10: the daemon at full width through its entry point -----------------
+
+DAEMON_PORTS = {"sip": 25271, "bob": 25281, "metrics": 25291, "rtp": (36500, 36900)}
+DAEMON_BOOT_S = 600.0  # the daemon's own bound to answer OPTIONS and /metrics
+DAEMON_STOP_S = 30.0  # SIGTERM to exit
+DAEMON_SAYINGS = ((("please help now", 21), ("want help today", 22)),
+                  (("please help now", 23), ("want help today", 24)))
+# runs the daemon's __main__ as ``python -m`` does; on SIGUSR2 it writes the
+# kernels' launch counts and the engines' encodes and steps so far to the
+# file named in the env (the daemon itself takes SIGUSR1 for a metrics dump)
+DAEMON_PRELUDE = """
+import json, os, runpy, signal
+from infernos_tpu_torch.cluster.actors import lookup
+from infernos_tpu_torch.ops import attention as attn, tts_step as ts
+
+
+def report(*_):
+    stt = lookup("stt:c1")._actor.engine
+    tiers = (stt.short, stt.long)
+    tts = [lookup(f"tts:c1:{lang}")._actor.engine for lang in ("pt", "en")]
+    work = {"attention": attn.fused_attention.launches,
+            "bf16_step": ts.fused_decode_step.launches,
+            "int8_step": ts.fused_decode_step.launches_int8,
+            "encoder_layers": tiers[0].cfg.encoder_layers,
+            "encodes": sum(len(e.encode_ms) for e in tiers),
+            "steps": sum(n // e.cfg.reduction_factor for e in tts for n in list(e.tick_frames)),
+            "tts_rate": tts[0].ecfg.sample_rate}
+    path = os.environ["CHIP_SMOKE_WORK"]
+    with open(path + ".tmp", "w") as f:
+        json.dump(work, f)
+    os.replace(path + ".tmp", path)
+
+
+attn.fused_attention.launches = 0
+ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
+signal.signal(signal.SIGUSR2, report)
+runpy.run_module("infernos_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def prom_values(text: str) -> dict:
+    """Prometheus text, as ``render_prometheus`` writes it, as ``{name: value}``."""
+    return {k: float(v) for k, v in (ln.split() for ln in text.splitlines() if ln)}
+
+
+def scrape_metrics(port: int) -> dict:
+    """``/metrics`` of the daemon as ``{name: value}``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+        return prom_values(r.read().decode())
+
+
+def calls_work(base: dict, now: dict) -> dict:
+    """What the calls added to the metrics since ``base`` (a snapshot taken
+    before them): for each observation, how many and their mean (from the
+    running count and mean); for each counter, how much."""
+    out = {}
+    for name in ("stt_inf_time", "stt_audio_s", "tts_session_s", "tts_ttfb",
+                 "tts_queue_wait"):
+        c0, c1 = (d.get(f"infernos_{name}_count", 0.0) for d in (base, now))
+        t0, t1 = (d.get(f"infernos_{name}_mean", 0.0) * c for d, c in ((base, c0), (now, c1)))
+        out[name] = {"count": c1 - c0, "mean": (t1 - t0) / (c1 - c0) if c1 > c0 else None}
+    for name in ("tts_audio_samples", "driver_crashes", "stt_poisoned_requests",
+                 "tts_poisoned_sessions"):
+        out[name] = now.get(f"infernos_{name}", 0.0) - base.get(f"infernos_{name}", 0.0)
+    return out
+
+
+def pacing(times) -> dict:
+    """Packets, span and inter-arrival percentiles (ms) of arrival ``times``."""
+    gaps = np.diff(np.asarray(times)) * 1e3
+    return {"packets": len(times),
+            "span_s": float(times[-1] - times[0]) if len(times) > 1 else 0.0,
+            "gap_ms_p50": float(np.percentile(gaps, 50)) if gaps.size else None,
+            "gap_ms_p95": float(np.percentile(gaps, 95)) if gaps.size else None}
+
+
+def daemon_work(proc, path: str, timeout: float = 10.0) -> dict:
+    """The daemon's kernel launches and its engines' encodes and steps so
+    far: ``DAEMON_PRELUDE`` writes them to ``path`` on SIGUSR2."""
+    import signal
+
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(path)
+    proc.send_signal(signal.SIGUSR2)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(proc.poll() is None, f"daemon exited on SIGUSR2 ({proc.returncode})")
+        check(time.monotonic() < deadline, f"daemon did not report its work in {timeout} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_daemon(torch):
+    """Phase ``daemon``: ``python -m infernos_tpu_torch -f cfg.yaml`` in a
+    subprocess at full width (Whisper-large-v3 in the tiered engine, two
+    SpeechT5 + HiFi-GAN + AmendNet engines, bf16, zero weights as the actors
+    start without a checkpoint, ``INFERNOS_STT_MAX_NEW=16``), answering two
+    concurrent calls, each bridged to one ``FarEnd``, two utterances on
+    each inbound leg.  Checks the answer and bridge; the calls' STT and TTS
+    work on ``/metrics`` (counted from a scrape after the warm-ups): a
+    result per spoken segment, a finished say per call, no driver crash or
+    quarantined work; paced RTP to both far ends of each call, Bob's legs
+    carrying the audio the TTS engines emitted; exit 0 within 30 s of
+    SIGTERM; and the kernels the calls went through, counted apart from
+    the warm-ups': kernel 1 launched once per encoder layer per encode,
+    kernel 2 (bf16) once per TTS step, int8 never.  Prints the daemon's log
+    on a failure.  Returns the calls' launch counts (attention, bf16 step)."""
+    import subprocess
+    import tempfile
+
+    from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
+    from infernos_tpu_torch.utils.platform import card_info
+
+    class Bob(FarEnd):
+        """The B-leg far end of both calls; keeps arrivals by source."""
+
+        def __init__(self, port):
+            self.by_src = {}
+            super().__init__(port=port)
+
+        def _rtp_in(self, data, addr, rtime):
+            super()._rtp_in(data, addr, rtime)
+            self.by_src.setdefault(tuple(addr), []).append(time.monotonic())
+
+    p = DAEMON_PORTS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    cfg, logf = os.path.join(tmp, "cfg.yaml"), os.path.join(tmp, "daemon.log")
+    work_path = os.path.join(tmp, "work.json")
+    with open(cfg, "w") as f:
+        f.write(lt_config(p["sip"], p["bob"], p["rtp"], metrics_port=p["metrics"]))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("INFERNOS_MODEL_MODE", "INFERNOS_DEVICE", "INFERNOS_TINY")}
+    env.update(INFERNOS_STT_MAX_NEW="16", CHIP_SMOKE_WORK=work_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    bob, phones, proc, ok = None, [], None, False
+    try:
+        with open(logf, "w") as sink:
+            proc = subprocess.Popen([sys.executable, "-c", DAEMON_PRELUDE, "-f", cfg],
+                                    cwd=root, env=env, stdout=sink,
+                                    stderr=subprocess.STDOUT)
+        t0 = time.monotonic()
+        # up: SIP answers OPTIONS (from the SIP actor's start) and /metrics
+        # answers (served once every app and model actor has started)
+        base = None  # the warm-ups' work, before any call
+        while base is None:
+            check(proc.poll() is None, f"daemon exited during boot ({proc.returncode})")
+            check(time.monotonic() - t0 < DAEMON_BOOT_S,
+                  f"daemon did not answer OPTIONS and /metrics within {DAEMON_BOOT_S} s")
+            time.sleep(1.0)
+            if sip_options(("127.0.0.1", p["sip"]), timeout=1.0) == 200:
+                with contextlib.suppress(OSError):
+                    base = scrape_metrics(p["metrics"])
+        boot_s = time.monotonic() - t0
+        warm = daemon_work(proc, work_path)  # the warm-ups' launches
+        bob = Bob(p["bob"])
+        phones = [FakePhone() for _ in DAEMON_SAYINGS]
+        answered = [None] * len(phones)
+
+        def dial(i):
+            answered[i] = phones[i].call(("127.0.0.1", p["sip"]), timeout=60.0)
+
+        dials = [threading.Thread(target=dial, args=(i,)) for i in range(len(phones))]
+        t_call = time.monotonic()
+        for t in dials:
+            t.start()
+        for t in dials:
+            t.join(90.0)
+        check(all(a is not None for a in answered) and all(ph.uac.connected for ph in phones),
+              "daemon: a call was not answered")
+        deadline = time.monotonic() + 30.0
+        while bob.n_answered < len(phones) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        check(bob.n_answered == len(phones),
+              f"daemon: {bob.n_answered} of {len(phones)} calls bridged to Bob")
+        gap = np.zeros(16000, np.float32)  # 2 s between the utterances
+        for ph, sayings in zip(phones, DAEMON_SAYINGS):
+            ph.stream_bg(np.concatenate([render_speech(t, s) if i == 0 else
+                                         np.concatenate([gap, render_speech(t, s)])
+                                         for i, (t, s) in enumerate(sayings)]))
+        segments = sum(len(s) for s in DAEMON_SAYINGS)
+        deadline = time.monotonic() + 300.0
+        while True:  # stt.audio_s: once per result (stt.inf_time: twice)
+            m = scrape_metrics(p["metrics"])
+            new = calls_work(base, m)
+            if (new["stt_audio_s"]["count"] >= segments
+                    and new["tts_session_s"]["count"] >= len(phones)):
+                break
+            check(proc.poll() is None, "daemon exited during the calls")
+            check(time.monotonic() < deadline,
+                  f"daemon: the calls' STT/TTS work did not show on /metrics in 300 s: {new}")
+            time.sleep(1.0)
+        # playout: until Bob's legs have been quiet for 2 s (at most 60 s)
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and (
+                not bob.by_src or time.monotonic() - max(
+                    ts_[-1] for ts_ in bob.by_src.values()) < 2.0):
+            time.sleep(0.2)
+        call_s = time.monotonic() - t_call
+        m = scrape_metrics(p["metrics"])
+        new = calls_work(base, m)
+        done = daemon_work(proc, work_path)
+        calls = {k: done[k] - warm[k] for k in
+                 ("attention", "bf16_step", "int8_step", "encodes", "steps")}
+        legs = {"bob": {f"{a[0]}:{a[1]}": pacing(v) for a, v in bob.by_src.items()},
+                "alice": [pacing([t for t, _ in ph.rx_packets]) for ph in phones]}
+        for ph in phones:
+            ph.stop_streaming()
+            ph.hangup()
+        proc.send_signal(15)
+        t_term = time.monotonic()
+        try:
+            rc = proc.wait(timeout=DAEMON_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        stop_s = time.monotonic() - t_term
+        # the packets the engines' audio fills: at 8 kHz, 160 samples each
+        tts_pkts = new["tts_audio_samples"] * 8000 / done["tts_rate"] / FRAME_BYTES
+        says = new["tts_session_s"]["count"]
+        emit("daemon", card=card_info(), model="whisper-large-v3 (tiered) + 2 x SpeechT5 "
+             "+ HiFi-GAN + AmendNet, bf16, zero weights",
+             boot_s=boot_s, calls=len(phones), call_s=call_s, legs=legs,
+             calls_work=new, metrics={k: v for k, v in m.items() if k.startswith(
+                 ("infernos_stt", "infernos_tts", "infernos_driver"))},
+             tts_packets=tts_pkts, exit_code=rc, stop_s=stop_s,
+             launches={"warm_up": {k: warm[k] for k in calls}, "calls": calls})
+        check(rc == 0, f"daemon: exit code {rc} after SIGTERM (want 0 within {DAEMON_STOP_S} s)")
+        check(m.get("infernos_driver_crashes", 0) == 0, "daemon: an engine driver crashed")
+        check(new["stt_poisoned_requests"] == 0 and new["tts_poisoned_sessions"] == 0,
+              f"daemon: quarantined work during the calls: {new}")
+        check(new["stt_audio_s"]["count"] >= segments and says >= len(phones),
+              f"daemon: the calls' STT results or says fell short: {new}")
+        check(len(legs["bob"]) == len(phones), f"daemon: Bob heard {len(legs['bob'])} legs")
+        for who, pc in [("bob " + k, v) for k, v in legs["bob"].items()] + \
+                [(f"alice {i}", v) for i, v in enumerate(legs["alice"])]:
+            check(pc["packets"] >= 10 and 15.0 <= pc["gap_ms_p50"] <= 25.0,
+                  f"daemon: {who} did not receive paced RTP: {pc}")
+        # Bob hears every say (Alice's speech in Portuguese; Bob says
+        # nothing): his legs carry the engines' audio, up to a frame of
+        # padding per say each way, and each leg at least one say's worth
+        bob_pkts = [pc["packets"] for pc in legs["bob"].values()]
+        check(abs(sum(bob_pkts) - tts_pkts) <= 2 * says
+              and min(bob_pkts) >= tts_pkts / says - 2,
+              f"daemon: Bob's legs got {bob_pkts} packets for the {tts_pkts} "
+              f"that {says} says filled")
+        check(1 <= calls["encodes"] <= new["stt_audio_s"]["count"]
+              and calls["attention"] == done["encoder_layers"] * calls["encodes"],
+              f"daemon: attention kernel launched {calls['attention']} times for "
+              f"{calls['encodes']} encodes in the calls, want {done['encoder_layers']} each")
+        check(calls["steps"] > 0 and calls["bf16_step"] == calls["steps"],
+              f"daemon: bf16 step kernel launched {calls['bf16_step']} times for "
+              f"{calls['steps']} steps in the calls")
+        check(done["int8_step"] == 0, f"daemon: the int8 step kernel launched {done['int8_step']} times")
+        ok = True
+        return calls["attention"], calls["bf16_step"]
+    finally:
+        for ph in phones:
+            ph.close()
+        if bob is not None:
+            bob.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if not ok and os.path.exists(logf):
+            with open(logf) as f:
+                print("---- daemon log ----\n" + f.read()[-20000:], file=sys.stderr, flush=True)
+
+
 # -- last phase: what the card runs for one attention call and one encode -----
 
 def device_launches(torch, fn) -> int:
@@ -1569,14 +2184,19 @@ def main(argv=None) -> int:
           "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
     call_attn, call_bf16 = phase_rtp_call(torch, attn, ts)
+    sip_attn, sip_bf16 = phase_sip_call(torch, attn, ts)
+    dmn_attn, dmn_bf16 = phase_daemon(torch)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
-    kernels[0]["launches"] = stt_launches + turn_attn + call_attn
-    kernels[0]["launches_by_path"] = {"stt": stt_launches, "turn": turn_attn,
-                                      "rtp_call": call_attn}
-    kernels[1]["launches"] = tts_launches + turn_bf16 + call_bf16
-    kernels[1]["launches_by_path"] = {"tts": tts_launches, "turn": turn_bf16,
-                                      "rtp_call": call_bf16}
+    # (the daemon's in its own process, over its whole life)
+    by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
+               "sip_call": sip_attn, "daemon": dmn_attn}
+    kernels[0]["launches"] = sum(by_path.values())
+    kernels[0]["launches_by_path"] = by_path
+    by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
+               "sip_call": sip_bf16, "daemon": dmn_bf16}
+    kernels[1]["launches"] = sum(by_path.values())
+    kernels[1]["launches_by_path"] = by_path
     kernels[2]["launches"] = turn_int8
     kernels[2]["launches_by_path"] = {"turn": turn_int8}
     print(json.dumps({"kernels": kernels}), flush=True)

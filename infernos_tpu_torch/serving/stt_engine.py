@@ -38,6 +38,7 @@ from ..models import whisper as wsp
 from ..models.whisper_tokens import (BEGIN_SUPPRESS, LANG_BASE, LANGUAGES,
                                      SPECIALS_V3, SUPPRESS_V3, V2_VOCAB,
                                      decode_with_timestamps, specials_for_vocab)
+from ..utils.metrics import metrics
 from ..utils.platform import default_device
 
 log = logging.getLogger("infernos_tpu_torch.serving.stt")
@@ -357,6 +358,7 @@ class STTEngine:
                 joined += 1
             except Exception:  # a poisoned request fails alone
                 log.exception("stt: quarantining poisoned queued request")
+                metrics.inc("stt.poisoned_requests")
                 try:
                     req.text_cb(STTResult(tokens=[], no_speech_prob=1.0,
                                           duration=0.0, inf_time=0.0))
@@ -461,4 +463,6 @@ class STTEngine:
             res.text = self.detokenize(res.tokens)
         res.compression_ratio = self._compression_ratio(res.text)
         self._flush_pending_locked(max_joins=1)  # backfill the freed slot
+        metrics.observe("stt.inf_time", res.inf_time)
+        metrics.observe("stt.audio_s", res.duration)
         req.text_cb(res)

@@ -327,14 +327,14 @@ class TTSEngine:
             n = min(len(self._pending), len(free), 8)
             entries = [self._pending.popleft() for _ in range(n)]
         ok = []
-        for sid, input_ids, speaker_emb, callback, max_frames, _ in entries:
+        for sid, input_ids, speaker_emb, callback, max_frames, t_enq in entries:
             try:
                 ia = np.asarray(input_ids, np.int32).reshape(-1)
                 sa = np.asarray(speaker_emb, np.float32).reshape(-1)
                 if sa.shape[0] != self.cfg.speaker_embedding_dim:
                     raise ValueError(f"speaker dim {sa.shape[0]} != "
                                      f"{self.cfg.speaker_embedding_dim}")
-                ok.append((sid, ia, sa, callback, max_frames))
+                ok.append((sid, ia, sa, callback, max_frames, t_enq))
             except Exception:  # a poisoned session gets EOS alone
                 log.exception("tts join: quarantining poisoned session sid=%s", sid)
                 metrics.inc("tts.poisoned_sessions")
@@ -353,10 +353,12 @@ class TTSEngine:
             ids[i, :k] = e[1][:k]
             mask[i, :k] = 1
         dev = self.device
+        now = time.monotonic()
         self._join_many(free[:len(ok)], torch.from_numpy(ids).to(dev),
                         torch.from_numpy(mask).to(dev),
                         torch.from_numpy(spk).to(dev))
-        for i, (sid, _, _, callback, max_frames) in enumerate(ok):
+        for i, (sid, _, _, callback, max_frames, t_enq) in enumerate(ok):
+            metrics.observe("tts.queue_wait", now - t_enq)
             self.sessions[free[i]] = _Session(
                 sid, free[i], callback,
                 max_frames or self.ecfg.max_steps * self.cfg.reduction_factor)
@@ -522,8 +524,12 @@ class TTSEngine:
                 # a copy: the tick's (pinned) buffer is not kept alive
                 sess.callback(audio_np[slot, : nvalid * fs].copy())
                 sess.frames_sent += nvalid
+                metrics.inc("tts.audio_samples", nvalid * fs)
             # run flags are monotone: a partial chunk means the stop fired
             if raw_valid < n_frames or sess.frames_sent >= sess.max_frames:
+                metrics.observe("tts.session_s", time.monotonic() - sess.t_start)
                 sess.callback(None)
                 self.sessions[slot] = None
                 self._leave(slot)
+        # queued sessions join in a batched dispatch at the next step
+        metrics.set("tts.active_slots", self.n_active)

@@ -37,3 +37,13 @@ def card_info() -> Optional[str]:
         return None
     lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
     return lines[0] if lines else None
+
+
+def model_start_timeout() -> float:
+    """Per-model-actor start timeout (seconds), ``INFERNOS_START_TIMEOUT``
+    or 3600.  The reference sized it for a cold XLA compile; the port
+    builds its kernels once per process (seconds with ``nvcc``) and keeps
+    the same default so that a slow first start never aborts a daemon."""
+    import os
+
+    return float(os.environ.get("INFERNOS_START_TIMEOUT", "3600"))

@@ -16,7 +16,10 @@
 - a CUDA ``TTSEngine`` is refused at construction with more slots than the
   step kernel takes;
 - the native media engine builds under the port's own ``build/`` and names
-  no path of the reference's ``native/`` directory.
+  no path of the reference's ``native/`` directory;
+- the daemon's entry point and a CPU ``build_cluster``/``stop_all`` load no
+  ``jax`` or reference module (fresh interpreter), and ``build_cluster``
+  demands a card unless the CPU is asked.
 """
 
 import ast
@@ -64,7 +67,12 @@ def test_every_submodule_imports_without_jax_or_reference():
               "audio.signals", "audio.muxer", "audio.codecs.g722", "media.rtp",
               "media.jitter", "media.native", "media.udp", "media.rtcp",
               "media.pacer", "media.cpacer", "media.ingest", "media.endpoint",
-              "audio.speechlang"):
+              "audio.speechlang", "sip.message", "sip.sdp", "sip.stack", "sip.ua",
+              "sip.registration", "sip.agent", "cluster.actors", "cluster.rtp_actor",
+              "cluster.model_actors", "config.config", "config.validator",
+              "apps.live_translator.session", "apps.live_translator.actor",
+              "models.presets", "utils.metrics_export", "bench.phone", "main",
+              "__main__"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -359,3 +367,44 @@ def test_new_entry_points_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
         make()
     got = make(device="cpu")
     assert got in (torch.device("cpu"), torch.float32)
+
+
+def test_daemon_cluster_loads_no_jax_or_reference(tmp_path):
+    """``import infernos_tpu_torch.main`` and a whole LiveTranslator
+    cluster built and stopped on the CPU (tiny random models, SIP bound on
+    port 25094, used by no other test file) leave no ``jax`` or reference module loaded."""
+    cfg = tmp_path / "lt.yaml"
+    cfg.write_text("sip:\n  settings:\n    bind: 127.0.0.1:25094\n  profiles:\n"
+                   "    inbound:\n      sink: apps/live_translator/c1\n"
+                   "rtp:\n  settings:\n    min_port: 35900\n    max_port: 35990\n"
+                   "apps:\n  live_translator:\n    profiles:\n      c1:\n"
+                   "        stt_langs: ['en', 'pt']\n        tts_langs: ['pt', 'en']\n")
+    code = (
+        "import json, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import infernos_tpu_torch.main as m\n"
+        "from infernos_tpu_torch.cluster.actors import stop_all\n"
+        "from infernos_tpu_torch.config import InfernConfig\n"
+        f"h = m.build_cluster(InfernConfig({str(cfg)!r}), tiny=True, device='cpu')\n"
+        "assert h['sip'].ask_sync('ready_check')[1] > 0\n"
+        "stop_all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'infernos_tpu'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=240).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_build_cluster_demands_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from infernos_tpu_torch import main as pmain
+    from infernos_tpu_torch.cluster import actors
+    from infernos_tpu_torch.config import InfernConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "lt.yaml"
+    cfg.write_text("apps:\n  live_translator:\n    profiles:\n      c1:\n"
+                   "        stt_langs: ['en', 'pt']\n        tts_langs: ['pt', 'en']\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmain.build_cluster(InfernConfig(str(cfg)), tiny=True)
+    assert actors.lookup("rtp") is None and actors.lookup("sip") is None

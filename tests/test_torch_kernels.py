@@ -9,7 +9,9 @@ entry, heads read in place, must give the bits of the ``[BH, S, 64]`` one.
 The decoder step (one cooperative launch per call, both weight modes) is
 held at 1 to 32 slots, positions at 0, at T - 1 and past it, with and
 without a ragged mask, to itself (two calls and a CUDA-graph replay give
-the same bits) and to its refusals (33 slots, T 4097).
+the same bits) and to its refusals (33 slots, T 4097).  A tiny random STT
+actor (head dim 12) started on the card fails with the attention kernel's
+refusal.
 Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
 (2^-6) relative: the plain version computes in fp32 from the same bf16
 inputs, and a short masked row's output is as large as a V entry; fp32
@@ -371,3 +373,16 @@ def test_decode_step_kernel_refuses_too_many_slots_or_rows(card, what):
     pos = torch.zeros(B, dtype=torch.long, device=card)
     with pytest.raises(ValueError, match="slots" if what == "B33" else "T 4097"):
         ts.fused_decode_step(None, cfg, x, _cache(init), pos, packed=fw)
+
+
+def test_tiny_random_stt_actor_on_the_card_fails_with_the_kernel_error(card, monkeypatch):
+    """The tiny random dims have head dim 12, which the attention kernel
+    does not take: on the card the actor's start raises the kernel's
+    refusal, with no fallback to the plain version."""
+    from infernos_tpu_torch.cluster.model_actors import STTActor
+
+    monkeypatch.delenv("INFERNOS_MODEL_MODE", raising=False)
+    actor = STTActor(tiny=True, device=card)
+    with pytest.raises(ValueError, match="head"):
+        actor.start()
+    assert actor.driver is None

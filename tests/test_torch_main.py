@@ -1,0 +1,191 @@
+"""The port's daemon entry point, ``python -m infernos_tpu_torch``.
+
+- A usage error exits 2.
+- Without a card and without ``INFERNOS_DEVICE=cpu`` it exits non-zero
+  with ``default_device``'s message before it reads the config's apps,
+  binds a socket or spawns an actor; without ``-f`` the daemon child logs
+  that message (the parent has returned 0 at the fork).
+- With ``INFERNOS_DEVICE=cpu -t`` it comes up in the foreground and
+  forked, answers a SIP OPTIONS, and exits 0 on SIGTERM.
+- An ``ai_attendant`` profile is refused before any actor is spawned.
+Ports: SIP 25090-25093, RTP 35000-35800 (no other test file uses them;
+test_torch_boundaries.py takes SIP 25094 and RTP 35900-35990).
+"""
+
+import os
+import signal
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from infernos_tpu_torch import main as pmain
+from infernos_tpu_torch.cluster import actors
+from infernos_tpu_torch.config import InfernConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+NO_CARD = "no CUDA device"
+
+
+def _config(tmp_path, sip_port, rtp_min, app="live_translator"):
+    profile = {"live_translator": "stt_langs: ['en', 'pt']\n"
+                                  "                tts_langs: ['pt', 'en']",
+               "ai_attendant": "stt_lang: en\n                tts_lang: en"}[app]
+    p = tmp_path / f"{app}.yaml"
+    p.write_text(textwrap.dedent(f"""
+        sip:
+          settings:
+            bind: 127.0.0.1:{sip_port}
+          profiles:
+            inbound:
+              sink: apps/{app}/c1
+        rtp:
+          settings:
+            min_port: {rtp_min}
+            max_port: {rtp_min + 200}
+        apps:
+          {app}:
+            profiles:
+              c1:
+                {profile}
+    """))
+    return p
+
+
+def _env(**kw):
+    env = dict(os.environ)
+    env.pop("INFERNOS_DEVICE", None)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(kw)
+    return env
+
+
+def _wait_log(path, text, proc=None, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        log = path.read_text() if path.exists() else ""
+        if text in log:
+            return log
+        if proc is not None and proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    pytest.fail(f"{text!r} not in the daemon log:\n{path.read_text() if path.exists() else ''}")
+
+
+def _port_free(port):
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.bind(("127.0.0.1", port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
+def _gone(pid, timeout=30.0):
+    """Whether ``pid`` has exited (a zombie that no one reaps counts)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
+                    return True
+        except FileNotFoundError:
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.1)
+
+
+@pytest.mark.parametrize("argv", [["prog"], ["prog", "-z", "c.yaml"],
+                                  ["prog", "a.yaml", "b.yaml"]])
+def test_usage_error_exits_2(argv, capsys):
+    assert pmain.main(argv) == 2
+    assert "usage:" in capsys.readouterr().err
+
+
+def test_no_card_foreground_exits_before_anything(tmp_path, monkeypatch, capsys):
+    """In process: ``default_device`` fails first, so neither the config
+    nor the cluster is touched and no actor exists."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("INFERNOS_DEVICE", raising=False)
+    called = []
+    monkeypatch.setattr(pmain, "InfernConfig", lambda *a: called.append(a))
+    monkeypatch.setattr(pmain, "build_cluster", lambda *a, **k: called.append(a))
+    cfg = _config(tmp_path, 25090, 35000)
+    assert pmain.main(["prog", "-f", str(cfg)]) == 1
+    assert NO_CARD in capsys.readouterr().err
+    assert called == [] and actors.lookup("sip") is None and actors.lookup("rtp") is None
+
+
+def test_no_card_daemon_exits_nonzero(tmp_path):
+    cfg = _config(tmp_path, 25090, 35000)
+    proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch", "-f", str(cfg)],
+                          cwd=tmp_path, env=_env(CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and NO_CARD in proc.stderr
+    assert _port_free(25090)
+
+    # forked: the parent returns 0; the daemon child logs why it stopped
+    log, pidf = tmp_path / "d.log", tmp_path / "d.pid"
+    proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch", "-L", str(log),
+                           "-i", str(pidf), str(cfg)], cwd=tmp_path,
+                          env=_env(CUDA_VISIBLE_DEVICES=""), timeout=120)
+    assert proc.returncode == 0
+    _wait_log(log, NO_CARD)
+    assert _gone(int(pidf.read_text()))
+    assert _port_free(25090)
+
+
+def test_cpu_daemon_foreground_answers_and_stops(tmp_path):
+    cfg = _config(tmp_path, 25091, 35200)
+    log = tmp_path / "fg.log"
+    with open(log, "w") as sink:
+        proc = subprocess.Popen([sys.executable, "-m", "infernos_tpu_torch", "-f", "-t",
+                                 str(cfg)], cwd=tmp_path, env=_env(INFERNOS_DEVICE="cpu"),
+                                stdout=sink, stderr=subprocess.STDOUT)
+    try:
+        _wait_log(log, "infernos_tpu_torch up", proc)
+        assert cs.sip_options(("127.0.0.1", 25091)) == 200
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0, log.read_text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_cpu_daemon_forked_answers_and_stops(tmp_path):
+    """The non-``-f`` path: the grandchild serves after the two forks."""
+    cfg = _config(tmp_path, 25092, 35400)
+    log, pidf = tmp_path / "bg.log", tmp_path / "bg.pid"
+    proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch", "-t", "-L", str(log),
+                           "-i", str(pidf), str(cfg)], cwd=tmp_path,
+                          env=_env(INFERNOS_DEVICE="cpu"), timeout=120)
+    assert proc.returncode == 0
+    pid = None
+    try:
+        _wait_log(log, "infernos_tpu_torch up")
+        pid = int(pidf.read_text())
+        assert cs.sip_options(("127.0.0.1", 25092)) == 200
+        os.kill(pid, signal.SIGTERM)
+        assert _gone(pid), log.read_text()
+        assert "shutting down" in log.read_text()
+    finally:
+        if pid is not None and not _gone(pid, 0.0):
+            os.kill(pid, signal.SIGKILL)
+
+
+def test_ai_attendant_profile_refused_before_any_actor(tmp_path):
+    iconf = InfernConfig(str(_config(tmp_path, 25093, 35600, app="ai_attendant")))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        pmain.build_cluster(iconf, tiny=True, device="cpu")
+    assert actors.lookup("sip") is None and actors.lookup("rtp") is None
+    assert _port_free(25093)
