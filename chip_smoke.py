@@ -51,20 +51,41 @@ Phases, each printing one JSON line:
                concurrent calls bridged to a ``FarEnd``, paced RTP to every
                far end, STT and TTS work on ``/metrics``, no driver crash,
                exit 0 within 30 s of SIGTERM;
-11. launches -- the kernels and copies the card runs for one
+11. llm     -- the LLM engine as the full ``LLMActor`` starts it
+               (Qwen2.5-7B dims, zeros made in the int8 layout on the card,
+               random embedding and readout, bf16) serving four chat
+               requests, one per prompt bucket and one short: each
+               request's tokens in the batch equal a run of it alone, the
+               peak memory stays under the dense bf16 weights; prefill and
+               decode times beside the decode step's bound;
+12. llm_tiny -- the trained tiny LLM in bf16: its replies to fixed
+               attendant contexts must be the training policy's;
+13. aia_call -- the AI attendant through SIP and the actors, in process,
+               on the tiny-real trio (bf16, Griffin-Lim): a ``FakePhone``
+               says "hello" (greeted) and "transfer me to billing please"
+               (transferred); the LLM's replies must be the policy's and
+               her packets must carry the audio the TTS emitted;
+14. daemon_aia -- the daemon with an ``ai_attendant`` profile at full
+               width (Whisper-large-v3 tiered, Qwen2.5-7B int8, SpeechT5 +
+               HiFi-GAN + AmendNet, zero weights): one call of two
+               utterances, STT, LLM and TTS work on ``/metrics``, paced RTP
+               holding the emitted audio, exit 0 within 30 s of SIGTERM;
+15. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-Weights are random, from fixed seeds, except in ``rtp_call`` and
-``sip_call``, which serve the vendored trained tiny models, and ``daemon``,
-which starts with zero weights as the actors do without a checkpoint.
+Weights are random, from fixed seeds, except in ``rtp_call``,
+``sip_call``, ``llm_tiny`` and ``aia_call``, which serve the vendored
+trained tiny models, and ``daemon`` and ``daemon_aia``, which start with
+zero weights as the actors do without a checkpoint (the LLM's embedding and
+readout random, as its actor starts them).
 Every check that fails raises, so the script exits non-zero and prints no
 result line; it never falls back to the CPU or to a plain version.  Each
 kernel's launch count is set to 0 right before the path that runs it and
-read right after (in ``daemon``, by the daemon's process over its life,
-written to a file when it exits).
+read right after (in ``daemon`` and ``daemon_aia``, by the daemon's
+process, reported on SIGUSR2 after its warm-ups and after the calls).
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs; they print no result
 line).
@@ -75,6 +96,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import sys
@@ -94,8 +116,13 @@ ENC_REL_TOL = 5e-2  # relative L2 error of the 32-layer encoder output, bf16 act
 MEL_REL_TOL = 5e-2  # relative L2 error of one TTS tick's mel chunk (16 chained steps), bf16
 
 
+_T0 = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": round(time.monotonic() - _T0, 1), **kw}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1530,14 +1557,68 @@ def lt_config(sip_port: int, bob_port: int, rtp, metrics_port=None) -> str:
     return text
 
 
-def wait_reply(phone, n_before: int, timeout: float) -> bool:
-    """Until a burst of sound has come in after the first ``n_before``
-    packets and no packet has arrived for a second (the pacer stops when a
-    say's audio ends); False at ``timeout``."""
+class AppEvents(logging.Handler):
+    """Counts what an app's sessions log at DEBUG (``LTSession`` and
+    ``AIASession`` log each): VAD segments in, STT results (their texts
+    kept), LLM replies, and says started and played out.  A say is played
+    out when the pacer has sent its last packet (its done marker fires
+    there, ``ASMarkerSentDoneCB``)."""
+
+    KINDS = (("vad chunk", "segments"), ("stt ", "results"), ("llm ", "replies"),
+             ("say done", "says_done"), ("say ", "says"))
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.counts = {k: 0 for _, k in self.KINDS}
+        self.counts["finals"] = 0  # LLM replies' last sentences
+        self.stt_texts, self.llm_texts = [], []
+
+    def emit(self, record):
+        msg = str(record.msg)
+        if "Session %s" not in msg or ": " not in msg:
+            return
+        what = msg.split(": ", 1)[1]
+        for prefix, kind in self.KINDS:
+            if what.startswith(prefix):
+                self.counts[kind] += 1
+                if kind == "results":
+                    self.stt_texts.append(record.args[-2])
+                elif kind == "replies":
+                    self.llm_texts.append(record.args[-2])
+                    self.counts["finals"] += bool(record.args[-1])
+                return
+
+    def since(self, base: dict) -> dict:
+        return {k: v - base[k] for k, v in self.counts.items()}
+
+
+# a phone's VAD emits a segment within this long after its speech ends
+VAD_RELEASE_S = 1.5
+# after the reply's says are played out, its last packets are on their way
+QUIET_S = 1.0
+
+
+def says_over(events: AppEvents, base: dict, t_last: float, llm: bool = False) -> bool:
+    """Whether a reply is over: ``VAD_RELEASE_S`` after the speaker's last
+    speech packet (``t_last``), every segment has its STT result, with
+    ``llm`` the LLM's reply has ended, at least one say was started and
+    every say started has been played out."""
+    n = events.since(base)
+    return (time.monotonic() > t_last + VAD_RELEASE_S and n["segments"] >= 1
+            and n["results"] == n["segments"] and (not llm or n["finals"] >= 1)
+            and n["says"] >= 1 and n["says_done"] == n["says"])
+
+
+def wait_reply(phone, n_before: int, timeout: float, over) -> bool:
+    """Until ``over()`` (the app has played the reply out: :func:`says_over`),
+    sound has come in after the first ``n_before`` packets and no packet
+    has arrived for ``QUIET_S``; False at ``timeout``.  A quiet stretch
+    alone never ends a reply: a TTS tick slower than real time leaves one
+    inside it."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         pkts = phone.rx_packets[n_before:]
-        if pkts and time.monotonic() - pkts[-1][0] > 1.0:
+        if pkts and time.monotonic() - pkts[-1][0] > QUIET_S and over():
             audio = rx_audio(phone, n_before)
             if len(audio) > 4000 and np.abs(audio).max() > SILENT:
                 return True
@@ -1553,7 +1634,7 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
     ``FakePhone`` (Alice) calls the SIP port; the app dials Bob, a
     ``FarEnd``; each line of ``CALL_LINES`` is spoken in turn by its
     speaker's phone as paced G.711 RTP, and what the listener hears is
-    kept.  With ``together``, the two TTS actors then say each line's
+    kept until the app has played the reply out (:func:`wait_reply`).  With ``together``, the two TTS actors then say each line's
     expected text at once through their session API (both engines
     stepping one stream).  ``on_ready()`` runs once the cluster is up and
     warm, right before the first call.  Alice hangs up at the end; Bob
@@ -1562,7 +1643,6 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
     STT results, their mean latency and the TTS first chunk (the engines'
     ``stt.audio_s``, ``stt.inf_time`` and ``tts.ttfb`` over the direction),
     what the listener heard and the reply start; and the engines."""
-    import logging
     import tempfile
 
     from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
@@ -1575,19 +1655,11 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
 
     timeout_s = 150.0 if default_device(device).type == "cpu" else 60.0
     ports = SIP_CALL_PORTS
-    stt_texts = []
-
-    class SttLog(logging.Handler):
-        """Keeps the text of each STT result the app logs (``LTSession.text_in``)."""
-
-        def emit(self, record):
-            if str(record.msg).startswith("LTSession %s %s: stt "):
-                stt_texts.append(record.args[2])
 
     def registry() -> dict:  # the process's metrics, named as /metrics names them
         return prom_values(render_prometheus(metrics.snapshot()))
 
-    app_log, stt_log = logging.getLogger("infernos_tpu_torch.apps.lt"), SttLog()
+    app_log, events = logging.getLogger("infernos_tpu_torch.apps.lt"), AppEvents()
     app_level = app_log.level
     alice = bob = None
     out = {}
@@ -1598,7 +1670,7 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
                 f.write(lt_config(ports["sip"], ports["bob"], ports["rtp"]))
             iconf = InfernConfig(path)
         try:
-            app_log.addHandler(stt_log)
+            app_log.addHandler(events)
             app_log.setLevel(logging.DEBUG)
             t0 = time.perf_counter()
             handles = build_cluster(iconf, tiny=True, bind_ip="127.0.0.1", device=device)
@@ -1622,7 +1694,8 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
             dirs = []
             for spk, lst, s_lang, t_lang, text, seed, expect in CALL_LINES:
                 listener = phones[lst]
-                n_before, n_texts, base = len(listener.rx_packets), len(stt_texts), registry()
+                n_before, n_texts, base = len(listener.rx_packets), len(events.stt_texts), registry()
+                seen = dict(events.counts)
                 audio = render_speech(text, seed)
                 t_send = time.monotonic()
                 if spk == "alice":
@@ -1633,7 +1706,8 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
                     bob.stream_bg(audio, bob.last_rtp_src)
                 # the last speech packet's send time at the phones' 20 ms pace
                 t_last = t_send + (len(audio) // FRAME_BYTES - 1) * 0.020
-                heard = wait_reply(listener, n_before, timeout_s)
+                heard = wait_reply(listener, n_before, timeout_s,
+                                   lambda: says_over(events, seen, t_last))
                 phones[spk].stop_streaming()
                 check(heard, f"sip call {spk}->{lst}: no reply within {timeout_s} s")
                 t_first = first_sound_at(listener, n_before)
@@ -1643,7 +1717,7 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
                 dirs.append(types.SimpleNamespace(
                     speaker=spk, listener=lst, stt_lang=s_lang, tts_lang=t_lang,
                     text=text, expect=expect, speech_s=len(audio) / 8000,
-                    stt_text=stt_texts[n_texts:], stt_results=work["stt_audio_s"]["count"],
+                    stt_text=events.stt_texts[n_texts:], stt_results=work["stt_audio_s"]["count"],
                     stt_latency_s=work["stt_inf_time"]["mean"],
                     says=work["tts_ttfb"]["count"], first_chunk_s=work["tts_ttfb"]["mean"],
                     rx=rx_audio(listener, n_before),
@@ -1663,7 +1737,7 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
                 if ph is not None:
                     ph.close()
             stop_all()
-            app_log.removeHandler(stt_log)
+            app_log.removeHandler(events)
             app_log.setLevel(app_level)
     time.sleep(0.5)
     out["actor_threads_left"] = [t.name for t in threading.enumerate()
@@ -1810,14 +1884,19 @@ DAEMON_SAYINGS = ((("please help now", 21), ("want help today", 22)),
 # file named in the env (the daemon itself takes SIGUSR1 for a metrics dump)
 DAEMON_PRELUDE = """
 import json, os, runpy, signal
-from infernos_tpu_torch.cluster.actors import lookup
+from infernos_tpu_torch.cluster import actors
 from infernos_tpu_torch.ops import attention as attn, tts_step as ts
 
 
+def engines(prefix):
+    with actors._registry_lock:
+        return [h._actor.engine for n, h in actors._registry.items() if n.startswith(prefix)]
+
+
 def report(*_):
-    stt = lookup("stt:c1")._actor.engine
+    stt = engines("stt:")[0]
     tiers = (stt.short, stt.long)
-    tts = [lookup(f"tts:c1:{lang}")._actor.engine for lang in ("pt", "en")]
+    tts = engines("tts:")
     work = {"attention": attn.fused_attention.launches,
             "bf16_step": ts.fused_decode_step.launches,
             "int8_step": ts.fused_decode_step.launches_int8,
@@ -1857,12 +1936,12 @@ def calls_work(base: dict, now: dict) -> dict:
     running count and mean); for each counter, how much."""
     out = {}
     for name in ("stt_inf_time", "stt_audio_s", "tts_session_s", "tts_ttfb",
-                 "tts_queue_wait"):
+                 "tts_queue_wait", "llm_gen_time"):
         c0, c1 = (d.get(f"infernos_{name}_count", 0.0) for d in (base, now))
         t0, t1 = (d.get(f"infernos_{name}_mean", 0.0) * c for d, c in ((base, c0), (now, c1)))
         out[name] = {"count": c1 - c0, "mean": (t1 - t0) / (c1 - c0) if c1 > c0 else None}
     for name in ("tts_audio_samples", "driver_crashes", "stt_poisoned_requests",
-                 "tts_poisoned_sessions"):
+                 "tts_poisoned_sessions", "llm_tokens", "llm_poisoned_requests"):
         out[name] = now.get(f"infernos_{name}", 0.0) - base.get(f"infernos_{name}", 0.0)
     return out
 
@@ -1893,6 +1972,71 @@ def daemon_work(proc, path: str, timeout: float = 10.0) -> dict:
         return json.load(f)
 
 
+@contextlib.contextmanager
+def daemon(cfg_text: str, sip_port: int, metrics_port: int):
+    """``python -m infernos_tpu_torch -f cfg.yaml`` (config ``cfg_text``)
+    in a subprocess under ``DAEMON_PRELUDE``, with ``INFERNOS_STT_MAX_NEW=16``
+    and no tiny or CPU mode; yields once SIP answers OPTIONS (the SIP
+    actor's start) and ``/metrics`` answers (served once every app and model
+    actor has started), at most ``DAEMON_BOOT_S`` after the start.  The
+    namespace it yields holds ``proc``, ``work_path`` (for
+    :func:`daemon_work`), ``base`` (the metrics before any call), ``boot_s``,
+    ``terminate()`` (SIGTERM, then -> exit code or None after
+    ``DAEMON_STOP_S``, and seconds), ``closers`` (called at the end) and
+    ``ok``: unless the caller sets it, the daemon's log is printed.  The
+    daemon is killed if it is still running at the end."""
+    import subprocess
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    cfg, logf = os.path.join(tmp, "cfg.yaml"), os.path.join(tmp, "daemon.log")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    d = types.SimpleNamespace(proc=None, work_path=os.path.join(tmp, "work.json"),
+                              ok=False, closers=[])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("INFERNOS_MODEL_MODE", "INFERNOS_DEVICE", "INFERNOS_TINY")}
+    env.update(INFERNOS_STT_MAX_NEW="16", CHIP_SMOKE_WORK=d.work_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def terminate():
+        d.proc.send_signal(15)
+        t_term = time.monotonic()
+        try:
+            rc = d.proc.wait(timeout=DAEMON_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        return rc, time.monotonic() - t_term
+
+    d.terminate = terminate
+    try:
+        with open(logf, "w") as sink:
+            d.proc = subprocess.Popen([sys.executable, "-c", DAEMON_PRELUDE, "-f", cfg],
+                                      cwd=root, env=env, stdout=sink,
+                                      stderr=subprocess.STDOUT)
+        t0 = time.monotonic()
+        d.base = None
+        while d.base is None:
+            check(d.proc.poll() is None, f"daemon exited during boot ({d.proc.returncode})")
+            check(time.monotonic() - t0 < DAEMON_BOOT_S,
+                  f"daemon did not answer OPTIONS and /metrics within {DAEMON_BOOT_S} s")
+            time.sleep(1.0)
+            if sip_options(("127.0.0.1", sip_port), timeout=1.0) == 200:
+                with contextlib.suppress(OSError):
+                    d.base = scrape_metrics(metrics_port)
+        d.boot_s = time.monotonic() - t0
+        yield d
+    finally:
+        for close in d.closers:
+            close()
+        if d.proc is not None and d.proc.poll() is None:
+            d.proc.kill()
+            d.proc.wait()
+        if not d.ok and os.path.exists(logf):
+            with open(logf) as f:
+                print("---- daemon log ----\n" + f.read()[-20000:], file=sys.stderr, flush=True)
+
+
 def phase_daemon(torch):
     """Phase ``daemon``: ``python -m infernos_tpu_torch -f cfg.yaml`` in a
     subprocess at full width (Whisper-large-v3 in the tiered engine, two
@@ -1908,9 +2052,6 @@ def phase_daemon(torch):
     the warm-ups': kernel 1 launched once per encoder layer per encode,
     kernel 2 (bf16) once per TTS step, int8 never.  Prints the daemon's log
     on a failure.  Returns the calls' launch counts (attention, bf16 step)."""
-    import subprocess
-    import tempfile
-
     from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
     from infernos_tpu_torch.utils.platform import card_info
 
@@ -1926,38 +2067,14 @@ def phase_daemon(torch):
             self.by_src.setdefault(tuple(addr), []).append(time.monotonic())
 
     p = DAEMON_PORTS
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
-    cfg, logf = os.path.join(tmp, "cfg.yaml"), os.path.join(tmp, "daemon.log")
-    work_path = os.path.join(tmp, "work.json")
-    with open(cfg, "w") as f:
-        f.write(lt_config(p["sip"], p["bob"], p["rtp"], metrics_port=p["metrics"]))
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("INFERNOS_MODEL_MODE", "INFERNOS_DEVICE", "INFERNOS_TINY")}
-    env.update(INFERNOS_STT_MAX_NEW="16", CHIP_SMOKE_WORK=work_path)
-    root = os.path.dirname(os.path.abspath(__file__))
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
-    bob, phones, proc, ok = None, [], None, False
-    try:
-        with open(logf, "w") as sink:
-            proc = subprocess.Popen([sys.executable, "-c", DAEMON_PRELUDE, "-f", cfg],
-                                    cwd=root, env=env, stdout=sink,
-                                    stderr=subprocess.STDOUT)
-        t0 = time.monotonic()
-        # up: SIP answers OPTIONS (from the SIP actor's start) and /metrics
-        # answers (served once every app and model actor has started)
-        base = None  # the warm-ups' work, before any call
-        while base is None:
-            check(proc.poll() is None, f"daemon exited during boot ({proc.returncode})")
-            check(time.monotonic() - t0 < DAEMON_BOOT_S,
-                  f"daemon did not answer OPTIONS and /metrics within {DAEMON_BOOT_S} s")
-            time.sleep(1.0)
-            if sip_options(("127.0.0.1", p["sip"]), timeout=1.0) == 200:
-                with contextlib.suppress(OSError):
-                    base = scrape_metrics(p["metrics"])
-        boot_s = time.monotonic() - t0
+    with daemon(lt_config(p["sip"], p["bob"], p["rtp"], metrics_port=p["metrics"]),
+                p["sip"], p["metrics"]) as d:
+        proc, work_path, base, boot_s = d.proc, d.work_path, d.base, d.boot_s
         warm = daemon_work(proc, work_path)  # the warm-ups' launches
         bob = Bob(p["bob"])
         phones = [FakePhone() for _ in DAEMON_SAYINGS]
+        d.closers += [bob.close] + [ph.close for ph in phones]
         answered = [None] * len(phones)
 
         def dial(i):
@@ -2010,13 +2127,7 @@ def phase_daemon(torch):
         for ph in phones:
             ph.stop_streaming()
             ph.hangup()
-        proc.send_signal(15)
-        t_term = time.monotonic()
-        try:
-            rc = proc.wait(timeout=DAEMON_STOP_S)
-        except subprocess.TimeoutExpired:
-            rc = None
-        stop_s = time.monotonic() - t_term
+        rc, stop_s = d.terminate()
         # the packets the engines' audio fills: at 8 kHz, 160 samples each
         tts_pkts = new["tts_audio_samples"] * 8000 / done["tts_rate"] / FRAME_BYTES
         says = new["tts_session_s"]["count"]
@@ -2054,19 +2165,635 @@ def phase_daemon(torch):
               f"daemon: bf16 step kernel launched {calls['bf16_step']} times for "
               f"{calls['steps']} steps in the calls")
         check(done["int8_step"] == 0, f"daemon: the int8 step kernel launched {done['int8_step']} times")
-        ok = True
-        return calls["attention"], calls["bf16_step"]
-    finally:
-        for ph in phones:
-            ph.close()
-        if bob is not None:
-            bob.close()
-        if proc is not None and proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        if not ok and os.path.exists(logf):
-            with open(logf) as f:
-                print("---- daemon log ----\n" + f.read()[-20000:], file=sys.stderr, flush=True)
+        d.ok = True
+    return calls["attention"], calls["bf16_step"]
+
+
+# -- phase 11: the LLM engine at Qwen2.5-7B width, int8 weights; phase 12 -----
+
+LLM_SEED = 0
+# (prompt bucket, characters of user text): four chat requests, one short
+# and one per bucket of the actor's full engine config; ByteTokenizer ids
+# are bytes, so a templated prompt is its user text's length plus 88
+LLM_REQUESTS = ((128, 5), (128, 36), (256, 150), (512, 400))
+LLM_TIMED = 5  # dispatches timed on the card
+
+
+def llm_prompt(rng, n_chars: int) -> str:
+    """A ChatML prompt (system + user) whose user text is ``n_chars`` of
+    lowercase words drawn from ``rng``."""
+    from infernos_tpu_torch.serving.llm_engine import apply_chat_template
+
+    words = []
+    while sum(len(w) + 1 for w in words) < n_chars:
+        words.append("".join(chr(97 + int(c)) for c in rng.integers(0, 26, int(rng.integers(2, 8)))))
+    return apply_chat_template([{"role": "system", "content": "be brief"},
+                                {"role": "user", "content": " ".join(words)[:n_chars]}])
+
+
+def run_requests(eng, prompts, tok) -> dict:
+    """``prompts`` submitted together to ``eng`` and stepped to the end:
+    each request's token ids and its seconds from submit to final, the
+    dispatches, the wall seconds and the tokens emitted."""
+    from infernos_tpu_torch.serving.llm_engine import LLMRequest
+
+    t_end = [None] * len(prompts)
+    t0 = time.perf_counter()
+    reqs = [LLMRequest(tok(p), lambda s, fin, i=i: fin and t_end.__setitem__(
+        i, time.perf_counter())) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    streams, steps = {}, 0
+    while True:
+        for s in eng.slots:
+            if s is not None:
+                streams[id(s.req)] = s.streamer.tokens
+        if not eng.step():
+            break
+        steps += 1
+    wall = time.perf_counter() - t0
+    tokens = [list(streams.get(id(r), [])) for r in reqs]
+    return {"tokens": tokens, "gen_s": [t - t0 for t in t_end], "dispatches": steps,
+            "wall_s": wall, "emitted": sum(len(t) for t in tokens)}
+
+
+def n_weights(tree) -> int:
+    """Elements of the linear weights (dense ``w`` or int8 ``w_q``) of a tree."""
+    if isinstance(tree, dict):
+        return sum(v.numel() if k in ("w", "w_q") and not isinstance(v, dict)
+                   else n_weights(v) for k, v in tree.items())
+    return 0
+
+
+def seeded_layers(torch, params, seed: int) -> None:
+    """Fill the layers of ``qwen_int8_init``'s tree in place from a generator
+    seeded with ``seed`` on their device: int8 codes uniform in [-127, 127]
+    at a scale that makes each weight's deviation 0.02 (dense weights, which
+    only tiny dims leave, ``N(0, 0.02)``), and norms of ones.  Zero layers
+    add nothing to the residual stream, so each token would depend on the
+    previous one alone; these carry terms across positions, heads and the
+    cache, which a slot's neighbours must not touch."""
+    g = torch.Generator(device=params["embed"]["w"].device).manual_seed(seed)
+    for node in params["layers"].values():
+        if "w_q" in node:
+            node["w_q"].random_(-127, 128, generator=g)
+            node["scale"].fill_(0.02 * 3 ** 0.5 / 127)
+        elif "w" in node:
+            node["w"].normal_(0.0, 0.02, generator=g)
+        elif "g" in node:
+            node["g"].fill_(1.0)
+
+
+def phase_llm(torch):
+    """Phase ``llm``: the LLM engine as the full ``LLMActor`` starts it --
+    Qwen2.5-7B dims in the int8 layout made on the card (``qwen_int8_init``:
+    no dense copy), bf16, the actor's engine (``LLM_FULL_ENGINE``: 4 slots,
+    buckets 128/256/512, 1024 tokens) -- serving four chat requests at once.
+    The actor's zero layers are filled from a seed here
+    (:func:`seeded_layers`).  Checks each request's token ids equal a run of
+    that request alone (batching invariance) and that the phase's peak
+    memory stays under the size of the dense bf16 weights.  Prints the prefill ms per bucket,
+    the decode ms per dispatch, per step and per token, tokens/s, the
+    ``llm.gen_time`` observations and the peak memory, beside the bound of a
+    decode step (its weights and cache rows read once at 3.35 TB/s)."""
+    import dataclasses
+    import gc
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from infernos_tpu_torch.cluster.model_actors import LLM_FULL_ENGINE, qwen_int8_init
+    from infernos_tpu_torch.models import presets, qwen, quant
+    from infernos_tpu_torch.models.tokenizers import ByteTokenizer
+    from infernos_tpu_torch.serving.llm_engine import LLMEngine
+    from infernos_tpu_torch.utils.metrics import metrics
+    from infernos_tpu_torch.utils.platform import card_info
+
+    cfg = presets.QWEN25_7B
+    ecfg = dataclasses.replace(LLM_FULL_ENGINE, dtype=torch.bfloat16)
+    with FakeTensorMode():
+        dense_bytes = quant.quantized_bytes(qwen.init_params(
+            cfg, torch.Generator(), "cpu", torch.bfloat16))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = qwen_int8_init(cfg, torch.device("cuda"), torch.bfloat16, LLM_SEED)
+    seeded_layers(torch, params, LLM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    q_bytes = quant.quantized_bytes(params)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, cfg, ecfg, detokenize=tok.detokenize, device="cuda")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(LLM_SEED)
+    prompts = [llm_prompt(rng, n) for _, n in LLM_REQUESTS]
+    plens = [len(tok(p)) for p in prompts]
+    buckets = [next(b for b in ecfg.prompt_buckets if n <= b) for n in plens]
+    check(buckets == [b for b, _ in LLM_REQUESTS], f"llm: prompts of {plens} tokens "
+          f"fall in buckets {buckets}")
+    h0 = metrics.hists.get("llm.gen_time")
+    n0, s0 = (h0.count, h0.total) if h0 else (0, 0.0)
+    together = run_requests(eng, prompts, tok)
+    h = metrics.hists["llm.gen_time"]
+    gen_obs = {"count": h.count - n0, "mean_s": (h.total - s0) / max(1, h.count - n0)}
+    alone = [run_requests(eng, [p], tok)["tokens"][0] for p in prompts]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+
+    prefill_ms = {}
+    for b in ecfg.prompt_buckets:
+        ids = torch.zeros((1, b), dtype=torch.long, device="cuda")
+        prefill_ms[b] = cuda_ms(lambda: eng._prefill_bucket(ids, b), iters=3)
+    # the decode dispatch with every slot live (positions of the batched
+    # run's prompts; the rows written land past them)
+    with eng._lock:
+        eng.pos = torch.tensor(plens, device="cuda")
+        eng.done = torch.zeros(ecfg.batch_slots, dtype=torch.bool, device="cuda")
+        dispatch_ms = cuda_ms(lambda: eng._step(), iters=LLM_TIMED, warmup=1)
+        pos_end = int(eng.pos.max())
+        # the same dispatches replayed from a CUDA graph: the card's own time,
+        # without the host's launches (a measurement only; the engine runs
+        # eagerly)
+        dispatch_graph_ms = graph_ms(lambda: eng._step(), iters=2)
+        eng.done = torch.ones(ecfg.batch_slots, dtype=torch.bool, device="cuda")
+    K, B = ecfg.steps_per_dispatch, ecfg.batch_slots
+    layer_bytes = quant.quantized_bytes(params["layers"]) + quant.quantized_bytes(params["ln_f"])
+    head_bytes = quant.quantized_bytes(params["lm_head"])
+    row_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2  # K and V, bf16
+    mean_pos = float(np.mean(plens)) + LLM_TIMED * K / 2
+    step_bytes = layer_bytes + head_bytes + B * mean_pos * row_bytes
+    step_ops = 2.0 * B * (n_weights(params["layers"]) + n_weights(params["lm_head"]))
+    b_ms, b_by = bound_ms(step_bytes, step_ops)
+    step_ms = dispatch_ms / K
+    emit("llm", card=card_info(), model="qwen2.5-7b dims, int8 weights (seeded codes; "
+         "random embedding and readout), bf16", engine=dataclasses.asdict(ecfg) | {"dtype": "bf16"},
+         init_s=init_s, warmup_s=warm_s, quantized_bytes=q_bytes, dense_bf16_bytes=dense_bytes,
+         peak_bytes=peak, prompt_tokens=plens, prefill_ms=prefill_ms,
+         decode_ms_per_dispatch=dispatch_ms, decode_graph_ms_per_dispatch=dispatch_graph_ms,
+         decode_ms_per_step=step_ms,
+         decode_ms_per_token=step_ms / B, step_bound_ms=b_ms, step_bound_by=b_by,
+         step_bytes=step_bytes, timed_pos_end=pos_end,
+         tokens_per_s=together["emitted"] / together["wall_s"], emitted=together["emitted"],
+         dispatches=together["dispatches"], wall_s=together["wall_s"],
+         gen_s=together["gen_s"], llm_gen_time=gen_obs,
+         tokens_per_request=[len(t) for t in together["tokens"]])
+    check(all(len(t) > 0 for t in together["tokens"]), "llm: a request emitted no token")
+    check(together["tokens"] == alone, "llm: a request's tokens in the batch differ from "
+          "the same request alone")
+    check(gen_obs["count"] == len(prompts), f"llm: {gen_obs['count']} llm.gen_time "
+          f"observations for {len(prompts)} requests")
+    check(peak < dense_bytes, f"llm: peak memory {peak} B is not under the dense bf16 "
+          f"weights' {dense_bytes} B")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the trained tiny attendant LLM's system prompt (tools/train_tiny_llm.py
+# SYSTEM_PROMPT; the script may not import the trainer, which imports JAX)
+TINY_LLM_PROMPT = ("You are a helpful phone attendant. Be brief and "
+                   "conversational.\nIf you have nothing to add, reply "
+                   "exactly <nothingtosay>.")
+GREETING = "hello this is the service team"
+
+
+def attendant_turn(name: str, number: str, utterance=None) -> list:
+    """A call's chat context as the attendant sees it: the system prompt and
+    the metadata turn, then, with ``utterance``, the greeting and what the
+    caller said."""
+    msgs = [{"role": "system", "content": TINY_LLM_PROMPT},
+            {"role": "user", "content": f"<incoming call from {name} ({number})>"}]
+    if utterance is not None:
+        msgs += [{"role": "assistant", "content": GREETING},
+                 {"role": "user", "content": utterance}]
+    return msgs
+
+
+# (context, the policy's reply): contexts of the trainer's dialogue draw, one
+# per policy branch the tiny model answers; tests/test_torch_tiny_llm.py
+# holds each reply to tools/train_tiny_llm.policy and to the port on the CPU
+LLM_TINY_CASES = tuple((attendant_turn(*c), reply) for *c, reply in (
+    ("agent", "445572", None, GREETING),
+    ("open", "890080", "transfer me to billing please", "will transfer you to billing now"),
+    ("open", "890080", "transfer me to sales please", "will transfer you to sales now"),
+    ("seis", "9447029", "<sentence interrupted>\ntransfer me to support please",
+     "will transfer you to support now"),
+    ("agent", "10839", "thanks goodbye", "thanks goodbye"),
+    ("quatro", "91998", "hello good morning", "hello can help you"),
+    ("segurar", "8263248", "cancel my order please", "will cancel that order now"),
+    ("is", "7632", "check my account number please", "please repeat my account number"),
+    ("de", "7746", "<sentence interrupted>\nisto tres speak", "<nothingtosay>"),
+))
+
+
+def phase_llm_tiny(torch):
+    """Phase ``llm_tiny``: the trained tiny LLM through the port's loader
+    in bf16 on the card, served by the tiny-real actor's engine config;
+    its greedy replies to ``LLM_TINY_CASES`` must be the policy's, word for
+    word (fp32 on the CPU gives them all; a reply bf16 flips is printed
+    with its context)."""
+    import dataclasses
+
+    from infernos_tpu_torch.cluster.model_actors import LLM_TINY_REAL_ENGINE
+    from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.models.tokenizers import ByteTokenizer
+    from infernos_tpu_torch.serving.llm_engine import LLMEngine, apply_chat_template
+    from infernos_tpu_torch.utils.platform import card_info
+
+    params, cfg = tiny_real.load_tiny_llm("cuda")
+    check(params["embed"]["w"].dtype == torch.bfloat16, "llm_tiny: not served in bf16")
+    ecfg = dataclasses.replace(LLM_TINY_REAL_ENGINE, dtype=torch.bfloat16)
+    tok = ByteTokenizer()
+    eng = LLMEngine(params, cfg, ecfg, detokenize=tok.detokenize, device="cuda")
+    eng.warmup()
+    prompts = [apply_chat_template(ctx) for ctx, _ in LLM_TINY_CASES]
+    run = run_requests(eng, prompts, tok)
+    replies = [tok.detokenize(t) for t in run["tokens"]]
+    flipped = [{"context": ctx[-1]["content"], "expected": want, "got": got}
+               for (ctx, want), got in zip(LLM_TINY_CASES, replies) if got != want]
+    emit("llm_tiny", card=card_info(), model="tiny-real qwen (D 192, 4 layers), bf16",
+         replies=replies, flipped=flipped, wall_s=run["wall_s"], dispatches=run["dispatches"],
+         gen_s=run["gen_s"])
+    check(not flipped, f"llm_tiny: bf16 replies differ from the policy: {flipped}")
+
+
+# -- phase 13: the AI attendant through SIP and the actors, in process --------
+
+AIA_CALL_PORTS = {"sip": 25076, "rtp": (37000, 37400)}
+# Alice's number: the app puts "<incoming call from 445572 (445572)>" in the
+# call's first LLM turn (the trainer's dialogues carry a number there; after
+# the bench phone's default caller "fakephone" the tiny model says "servis")
+AIA_CALLER = "445572"
+# what Alice says, its render seed, and what the attendant must answer (the
+# policy of tools/train_tiny_llm.py).  The app merges her first utterance
+# into the metadata turn, which the policy answers with the greeting.  The
+# tiny STT was trained on utterances of one to four words
+# (tools/train_tiny_stt.py), so she asks for billing in two: it hears
+# "billing" in every render seed that tests/test_torch_aia_call.py tries
+AIA_LINES = (("hello", 31, GREETING),
+             ("billing please", 32, "will transfer you to billing now"))
+# the VAD cuts 768-sample windows (serving/vad_engine.py) from 160-sample
+# packets: every 24 packets the windows and packets line up again
+VAD_PHASE_PACKETS = 24
+
+
+def aia_config(sip_port: int, rtp, metrics_port=None) -> str:
+    """The daemon config of one attendant (``examples/ai_attendant.yaml``):
+    inbound calls go to AI attendant profile ``a1`` (en/en) with the tiny
+    LLM's system prompt."""
+    text = (f"sip:\n  settings:\n    bind: 127.0.0.1:{sip_port}\n  profiles:\n"
+            f"    inbound:\n      sink: apps/ai_attendant/a1\n"
+            f"rtp:\n  settings:\n    min_port: {rtp[0]}\n    max_port: {rtp[1]}\n"
+            f"apps:\n  ai_attendant:\n    profiles:\n      a1:\n"
+            f"        stt_lang: en\n        tts_lang: en\n"
+            f"        llm_prompt: {json.dumps(TINY_LLM_PROMPT)}\n")
+    if metrics_port:
+        text += f"metrics:\n  port: {metrics_port}\n  bind: 127.0.0.1\n"
+    return text
+
+
+def drive_aia_call(device=None, on_ready=None) -> dict:
+    """The AI attendant through SIP, in process: ``build_cluster`` spawns
+    RTP, the attendant and SIP with the trained tiny-real trio
+    (``INFERNOS_MODEL_MODE=tiny-real``: STT, LLM, TTS on Griffin-Lim) on
+    ``device``; a ``FakePhone`` (Alice) calls in and says each line in turn
+    as paced G.711 RTP, then keeps the line open with silence, so the
+    app's 2 s flush sends the utterance to the LLM and the reply is said
+    back; what she hears is kept until the app has played the reply out
+    (:func:`wait_reply`).  ``on_ready()`` runs once the cluster is warm,
+    right before the call.  Alice hangs up at the end and ``stop_all()``
+    must leave no actor thread.  Returns, for each line, the STT texts and
+    LLM reply texts (the app's debug log), the STT latency, LLM ``gen_time``
+    and TTS first chunk (registry deltas), what Alice heard, what the TTS
+    handed her leg (``said``: at 8 kHz through her codec) and the reply
+    start; and the engines."""
+    import tempfile
+
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+    from infernos_tpu_torch.bench.phone import FakePhone
+    from infernos_tpu_torch.cluster.actors import lookup, stop_all
+    from infernos_tpu_torch.cluster.rtp_actor import RTPActor
+    from infernos_tpu_torch.config import InfernConfig
+    from infernos_tpu_torch.main import build_cluster
+    from infernos_tpu_torch.utils.metrics import metrics
+    from infernos_tpu_torch.utils.metrics_export import render_prometheus
+    from infernos_tpu_torch.utils.platform import default_device
+
+    timeout_s = 150.0 if default_device(device).type == "cpu" else 60.0
+    ports = AIA_CALL_PORTS
+
+    def registry() -> dict:
+        return prom_values(render_prometheus(metrics.snapshot()))
+
+    # what the TTS hands Alice's leg, copied before the leg resamples it
+    said, soundout = [], RTPActor.rtp_session_soundout
+
+    def tap(actor, sess_id, chunk):
+        if isinstance(chunk, AudioChunk):
+            said.append(AudioChunk(chunk.audio.copy(), chunk.samplerate))
+        soundout(actor, sess_id, chunk)
+
+    app_log, events = logging.getLogger("infernos_tpu_torch.apps.aia"), AppEvents()
+    app_level = app_log.level
+    alice = None
+    out = {}
+    with mock.patch.dict(os.environ, {"INFERNOS_MODEL_MODE": "tiny-real"}), \
+            mock.patch.object(RTPActor, "rtp_session_soundout", tap):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "aia.yaml")
+            with open(path, "w") as f:
+                f.write(aia_config(ports["sip"], ports["rtp"]))
+            iconf = InfernConfig(path)
+        try:
+            app_log.addHandler(events)
+            app_log.setLevel(logging.DEBUG)
+            t0 = time.perf_counter()
+            handles = build_cluster(iconf, tiny=True, bind_ip="127.0.0.1", device=device)
+            out["boot_s"] = time.perf_counter() - t0
+            engines = {m: lookup(f"{m}:a1")._actor.engine for m in ("stt", "llm", "tts")}
+            engines["stt"].encode_ms.clear()
+            engines["tts"].tick_ms.clear()
+            engines["tts"].tick_frames.clear()
+            out.update(engines, handles=sorted(handles))
+            alice = FakePhone()
+            if on_ready is not None:
+                on_ready()
+            t_call = time.monotonic()
+            alice.call(iconf.sip_conf.bind, cli=AIA_CALLER)
+            check(alice.uac.connected, "aia call: the call was not answered")
+            seq0 = alice._packetizer.seq
+            turns, stream = [], None
+            for text, seed, expect in AIA_LINES:
+                if stream is not None:  # one sender at a time on her leg
+                    alice.stop_streaming()
+                    stream.join(10.0)
+                    check(not stream.is_alive(), "aia call: Alice's sender did not stop")
+                n_before, base, seen = len(alice.rx_packets), registry(), dict(events.counts)
+                n_texts, n_llm, n_said = len(events.stt_texts), len(events.llm_texts), len(said)
+                # the silence she sent while the reply played depends on the
+                # clock: pad it to a whole number of VAD window cycles, so
+                # that the VAD cuts each line at the same phase in every run
+                sent = (alice._packetizer.seq - seq0) & 0xFFFF
+                lead = np.zeros(FRAME_BYTES * (-sent % VAD_PHASE_PACKETS), np.float32)
+                audio = np.concatenate([lead, render_speech(text, seed)])
+                t_send = time.monotonic()
+                stream = alice.stream_bg(audio, then_silence=True)
+                t_last = t_send + (len(audio) // FRAME_BYTES - 1) * 0.020
+                heard = wait_reply(alice, n_before, timeout_s,
+                                   lambda: says_over(events, seen, t_last, llm=True))
+                check(heard, f"aia call: no reply to {text!r} within {timeout_s} s")
+                t_first = first_sound_at(alice, n_before)
+                work = calls_work(base, registry())
+                turns.append(types.SimpleNamespace(
+                    text=text, expect=expect, speech_s=len(audio) / 8000,
+                    stt_text=events.stt_texts[n_texts:], llm_text=events.llm_texts[n_llm:],
+                    stt_results=work["stt_audio_s"]["count"],
+                    stt_latency_s=work["stt_inf_time"]["mean"],
+                    llm_gen_s=work["llm_gen_time"]["mean"], llm_replies=work["llm_gen_time"]["count"],
+                    says=work["tts_ttfb"]["count"], first_chunk_s=work["tts_ttfb"]["mean"],
+                    tts_samples=work["tts_audio_samples"], tts_rate=engines["tts"].ecfg.sample_rate,
+                    rx=rx_audio(alice, n_before), rx_packets=len(alice.rx_packets) - n_before,
+                    said=alice.codec.decode(alice.codec.encode(np.concatenate(
+                        [np.zeros(0, np.float32)] + [c.resample(8000).audio
+                                                     for c in said[n_said:]]))),
+                    reply_start_s=None if t_first is None else t_first - t_last))
+            alice.stop_streaming()
+            out["call_s"] = time.monotonic() - t_call
+            out["turns"] = turns
+            alice.hangup()
+            deadline = time.monotonic() + 10.0
+            aia = lookup("apps/ai_attendant/a1")._actor
+            while aia.sessions and time.monotonic() < deadline:
+                time.sleep(0.05)
+            out["sessions_left"] = len(aia.sessions)
+        finally:
+            if alice is not None:
+                alice.close()
+            stop_all()
+            app_log.removeHandler(events)
+            app_log.setLevel(app_level)
+    time.sleep(0.5)
+    out["actor_threads_left"] = [t.name for t in threading.enumerate()
+                                 if t.name.startswith("actor:") and t.is_alive()]
+    return out
+
+
+# the pacer's muxer hands the native pacer 100 ms blocks (5 packets) and
+# pads a say's last block with silence when the say ends
+MUX_BLOCK_PACKETS = 5
+
+
+def carries_says(packets: int, samples: float, rate: int, says: float) -> bool:
+    """Whether ``packets`` at 8 kHz hold the ``samples`` (at ``rate``) of
+    ``says`` says: none lost, and less than a block of padding a say."""
+    want = samples * 8000 / rate / FRAME_BYTES
+    return says >= 1 and want <= packets < want + MUX_BLOCK_PACKETS * says
+
+
+def reply_checks(turns) -> list:
+    """Per line of an attendant call: the LLM's reply (the app's log) must be
+    the policy's reply, the says must have ended, and Alice's packets must
+    carry the audio the TTS engine emitted for them (:func:`carries_says`)
+    with sound in it.  Returns the failures."""
+    bad = []
+    for t in turns:
+        pkts = t.tts_samples * 8000 / t.tts_rate / FRAME_BYTES
+        peak = float(np.abs(t.rx).max()) if len(t.rx) else 0.0
+        if " ".join(t.llm_text) != t.expect:
+            bad.append(f"after {t.text!r} the LLM said {t.llm_text!r}, not {t.expect!r}")
+        if not carries_says(t.rx_packets, t.tts_samples, t.tts_rate, t.says) or peak <= SILENT:
+            bad.append(f"after {t.text!r} Alice got {t.rx_packets} packets (peak {peak}) "
+                       f"for the {pkts} that {t.says} says filled")
+    return bad
+
+
+def heard_checks(stt_eng, turns):
+    """Per line of an attendant call: what Alice heard and what the TTS
+    handed her leg, each transcribed by ``stt_eng``.  The heard transcript
+    must reach word accuracy ``ACC_MIN`` against the said one: her leg
+    carries what the TTS said.  Against the policy's reply the accuracy is
+    reported, not held: the tiny STT, trained on one to four words, hears
+    these six-word replies badly even from the clean speech renderer, alike
+    in both packages (tests/test_torch_aia_call.py).  Returns (rows,
+    failures)."""
+    rows, bad = [], []
+    for t in turns:
+        heard = transcribe(stt_eng, active_region(t.rx), "en")
+        said = transcribe(stt_eng, active_region(t.said), "en")
+        acc = word_acc(said, heard)
+        rows.append({"heard": heard, "said": said, "heard_vs_said": acc,
+                     "expected": t.expect, "word_acc": word_acc(t.expect, heard)})
+        if acc < ACC_MIN:
+            bad.append(f"after {t.text!r} Alice heard {heard!r} where the TTS said "
+                       f"{said!r} (word accuracy {acc} < {ACC_MIN})")
+    return rows, bad
+
+
+def phase_aia_call(torch, attn, ts):
+    """Phase ``aia_call``: :func:`drive_aia_call` on the card (bf16,
+    Griffin-Lim).  Checks, per line: the LLM's reply is the policy's (the
+    greeting, then the transfer), the says ended and Alice's packets carry
+    the audio the TTS emitted (:func:`reply_checks`), and what she heard
+    reaches word accuracy 0.6 against what the TTS said
+    (:func:`heard_checks`, which also prints it against the policy's reply);
+    the kernels the warm cluster's call went through: kernel 1 twice per
+    encode (the tiny STT's 2 layers), kernel 2 (bf16) once per TTS step,
+    int8 never; the session ends at the hang-up and no actor thread is
+    left.  Returns the launch counts (attention, bf16 step)."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    def zero_counts():
+        attn.fused_attention.launches = 0
+        ts.fused_decode_step.launches = 0
+        ts.fused_decode_step.launches_int8 = 0
+
+    call = drive_aia_call(on_ready=zero_counts)
+    torch.cuda.synchronize()
+    attn_launches = attn.fused_attention.launches
+    bf16_steps = ts.fused_decode_step.launches
+    int8_steps = ts.fused_decode_step.launches_int8
+    stt, tts, llm = call["stt"], call["tts"], call["llm"]
+    check(all(e.device.type == "cuda" for e in (stt, tts, llm))
+          and stt.ecfg.dtype == llm.ecfg.dtype == torch.bfloat16,
+          "aia call: the attendant's engines do not serve bf16 on the card")
+    encodes = len(stt.encode_ms)
+    steps = sum(n // tts.cfg.reduction_factor for n in tts.tick_frames)
+    heard, unheard = heard_checks(stt, call["turns"])
+    out = [{"alice_said": t.text, "speech_s": t.speech_s, "stt_text": t.stt_text,
+            "llm_text": t.llm_text, "stt_results": t.stt_results,
+            "stt_latency_s": t.stt_latency_s, "llm_gen_time_s": t.llm_gen_s,
+            "llm_replies": t.llm_replies, "says": t.says,
+            "tts_first_chunk_s": t.first_chunk_s, "reply_start_s": t.reply_start_s,
+            "packets": t.rx_packets, "tts_samples": t.tts_samples,
+            "rx_s": len(t.rx) / 8000} | h for t, h in zip(call["turns"], heard)]
+    emit("aia_call", card=card_info(), model="tiny-real STT + LLM + TTS (bf16, Griffin-Lim)",
+         boot_s=call["boot_s"], call_s=call["call_s"], actors=call["handles"], turns=out,
+         word_acc_bar=ACC_MIN, attention_launches=attn_launches, bf16_step_launches=bf16_steps,
+         int8_step_launches=int8_steps, stt_encodes=encodes, tts_steps_run=steps,
+         encode_ms=stt.encode_ms, tts_ms_per_tick=tts.tick_ms,
+         sessions_left=call["sessions_left"], actor_threads_left=call["actor_threads_left"])
+    bad = reply_checks(call["turns"]) + unheard
+    check(not bad, f"aia call: {bad}")
+    check(encodes > 0 and attn_launches == stt.cfg.encoder_layers * encodes,
+          f"aia call: attention kernel launched {attn_launches} times for {encodes} "
+          f"encodes, want {stt.cfg.encoder_layers} each")
+    check(steps > 0 and bf16_steps == steps,
+          f"aia call: bf16 step kernel launched {bf16_steps} times for {steps} steps")
+    check(int8_steps == 0, f"aia call: the int8 step kernel launched {int8_steps} times")
+    check(call["sessions_left"] == 0, "aia call: the session outlived the hang-up")
+    check(not call["actor_threads_left"],
+          f"aia call: actor threads left after stop_all: {call['actor_threads_left']}")
+    return attn_launches, bf16_steps
+
+
+# -- phase 14: the daemon at full width with the AI attendant -----------------
+
+DAEMON_AIA_PORTS = {"sip": 25272, "metrics": 25292, "rtp": (38000, 38400)}
+DAEMON_AIA_SAYINGS = (("please help now", 25), ("want help today", 26))
+DAEMON_AIA_REPLY_S = 300.0  # per utterance: STT, the 2 s flush, LLM, TTS, playout
+
+
+def phase_daemon_aia(torch):
+    """Phase ``daemon_aia``: ``python -m infernos_tpu_torch -f cfg.yaml``
+    with an ``ai_attendant`` profile (``examples/ai_attendant.yaml``'s, en/en)
+    in a subprocess at full width with zero weights: Whisper-large-v3 in the
+    tiered engine, Qwen2.5-7B in the int8 layout, SpeechT5 + HiFi-GAN +
+    AmendNet, bf16, ``INFERNOS_STT_MAX_NEW=16``.  One call; Alice says two
+    utterances, the second once the reply to the first has been played out.
+    Checks, on ``/metrics`` after the warm-ups: an STT result per segment,
+    an ``llm.gen_time`` per flushed utterance, a finished say, no driver
+    crash and nothing quarantined; Alice's leg carries paced RTP (p50 gap
+    15-25 ms) holding the audio the TTS engine emitted; exit 0 within 30 s
+    of SIGTERM; the call's kernel launches apart from the warm-ups' (kernel
+    1 once per encoder layer per encode, kernel 2 bf16 once per TTS step,
+    int8 never).  Returns the call's launch counts (attention, bf16 step)."""
+    from infernos_tpu_torch.bench.phone import FakePhone
+    from infernos_tpu_torch.utils.platform import card_info
+
+    p = DAEMON_AIA_PORTS
+    torch.cuda.empty_cache()
+    with daemon(aia_config(p["sip"], p["rtp"], metrics_port=p["metrics"]),
+                p["sip"], p["metrics"]) as d:
+        warm = daemon_work(d.proc, d.work_path)
+        alice = FakePhone()
+        d.closers.append(alice.close)
+        t_call = time.monotonic()
+        alice.call(("127.0.0.1", p["sip"]), timeout=60.0, cli=AIA_CALLER)
+        check(alice.uac.connected, "daemon_aia: the call was not answered")
+        turns, stream = [], None
+        for k, (text, seed) in enumerate(DAEMON_AIA_SAYINGS, start=1):
+            if stream is not None:
+                alice.stop_streaming()
+                stream.join(1.0)
+            n_before = len(alice.rx_packets)
+            stream = alice.stream_bg(render_speech(text, seed), then_silence=True)
+            deadline = time.monotonic() + DAEMON_AIA_REPLY_S
+            while True:  # the reply made: STT, LLM and a say ended
+                new = calls_work(d.base, scrape_metrics(p["metrics"]))
+                if (new["stt_audio_s"]["count"] >= k and new["llm_gen_time"]["count"] >= k
+                        and new["tts_session_s"]["count"] >= k):
+                    break
+                check(d.proc.poll() is None, "daemon_aia: the daemon exited during the call")
+                check(time.monotonic() < deadline,
+                      f"daemon_aia: no reply to utterance {k} on /metrics in "
+                      f"{DAEMON_AIA_REPLY_S} s: {new}")
+                time.sleep(1.0)
+            # playout: until Alice's leg has been quiet for 2 s (at most 60 s)
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and (
+                    len(alice.rx_packets) == n_before
+                    or time.monotonic() - alice.rx_packets[-1][0] < 2.0):
+                time.sleep(0.2)
+            turns.append({"said": text, "packets": len(alice.rx_packets) - n_before,
+                          "reply_s": time.monotonic() - t_call})
+        call_s = time.monotonic() - t_call
+        m = scrape_metrics(p["metrics"])
+        new = calls_work(d.base, m)
+        done = daemon_work(d.proc, d.work_path)
+        calls = {k: done[k] - warm[k] for k in
+                 ("attention", "bf16_step", "int8_step", "encodes", "steps")}
+        leg = pacing([t for t, _ in alice.rx_packets])
+        alice.stop_streaming()
+        alice.hangup()
+        rc, stop_s = d.terminate()
+        tts_pkts = new["tts_audio_samples"] * 8000 / done["tts_rate"] / FRAME_BYTES
+        says = new["tts_session_s"]["count"]
+        emit("daemon_aia", card=card_info(), model="whisper-large-v3 (tiered) + qwen2.5-7b "
+             "(int8) + SpeechT5 + HiFi-GAN + AmendNet, bf16, zero weights",
+             boot_s=d.boot_s, call_s=call_s, turns=turns, leg=leg, calls_work=new,
+             metrics={k: v for k, v in m.items() if k.startswith(
+                 ("infernos_stt", "infernos_tts", "infernos_llm", "infernos_driver"))},
+             tts_packets=tts_pkts, exit_code=rc, stop_s=stop_s,
+             launches={"warm_up": {k: warm[k] for k in calls}, "calls": calls})
+        n = len(DAEMON_AIA_SAYINGS)
+        check(rc == 0, f"daemon_aia: exit code {rc} after SIGTERM (want 0 within "
+                       f"{DAEMON_STOP_S} s)")
+        check(m.get("infernos_driver_crashes", 0) == 0, "daemon_aia: an engine driver crashed")
+        check(new["stt_poisoned_requests"] == 0 and new["tts_poisoned_sessions"] == 0
+              and new["llm_poisoned_requests"] == 0,
+              f"daemon_aia: quarantined work during the call: {new}")
+        check(new["stt_audio_s"]["count"] >= n and new["llm_gen_time"]["count"] >= n
+              and says >= 1, f"daemon_aia: the call's STT, LLM or TTS work fell short: {new}")
+        check(leg["packets"] >= 10 and 15.0 <= leg["gap_ms_p50"] <= 25.0,
+              f"daemon_aia: Alice did not receive paced RTP: {leg}")
+        check(carries_says(leg["packets"], new["tts_audio_samples"], done["tts_rate"], says),
+              f"daemon_aia: Alice got {leg['packets']} packets for the {tts_pkts} that "
+              f"{says} says filled")
+        check(1 <= calls["encodes"] <= new["stt_audio_s"]["count"]
+              and calls["attention"] == done["encoder_layers"] * calls["encodes"],
+              f"daemon_aia: attention kernel launched {calls['attention']} times for "
+              f"{calls['encodes']} encodes, want {done['encoder_layers']} each")
+        check(calls["steps"] > 0 and calls["bf16_step"] == calls["steps"],
+              f"daemon_aia: bf16 step kernel launched {calls['bf16_step']} times for "
+              f"{calls['steps']} steps")
+        check(done["int8_step"] == 0,
+              f"daemon_aia: the int8 step kernel launched {done['int8_step']} times")
+        d.ok = True
+    return calls["attention"], calls["bf16_step"]
 
 
 # -- last phase: what the card runs for one attention call and one encode -----
@@ -2102,6 +2829,18 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
                                             n_heads=20))}
     for mode, fn in (step_calls or {}).items():
         out[f"fused_decode_step_{mode}"] = device_launches(torch, fn)
+    # one decode dispatch (K steps) of the tiny-real LLM engine: its
+    # kernels per layer and step are those of any Qwen config
+    from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.serving.llm_engine import LLMEngine, LLMEngineConfig
+
+    params, cfg = tiny_real.load_tiny_llm("cuda")
+    ecfg = LLMEngineConfig(batch_slots=4, prompt_buckets=(128,), max_total_tokens=448,
+                           max_new_tokens=64, dtype=torch.bfloat16)
+    eng = LLMEngine(params, cfg, ecfg, device="cuda")
+    with torch.no_grad():
+        out["llm_decode_dispatch"] = device_launches(torch, eng._step)
+    out["llm_dispatch_steps"], out["llm_layers"] = ecfg.steps_per_dispatch, cfg.num_layers
     if stt_params is not None:
         from infernos_tpu_torch.models import whisper as wsp
 
@@ -2186,15 +2925,21 @@ def main(argv=None) -> int:
     call_attn, call_bf16 = phase_rtp_call(torch, attn, ts)
     sip_attn, sip_bf16 = phase_sip_call(torch, attn, ts)
     dmn_attn, dmn_bf16 = phase_daemon(torch)
+    phase_llm(torch)
+    phase_llm_tiny(torch)
+    aia_attn, aia_bf16 = phase_aia_call(torch, attn, ts)
+    daia_attn, daia_bf16 = phase_daemon_aia(torch)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
-    # (the daemon's in its own process, over its whole life)
+    # (the daemons' calls in their own processes, apart from their warm-ups)
     by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
-               "sip_call": sip_attn, "daemon": dmn_attn}
+               "sip_call": sip_attn, "daemon": dmn_attn, "aia_call": aia_attn,
+               "daemon_aia": daia_attn}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
-               "sip_call": sip_bf16, "daemon": dmn_bf16}
+               "sip_call": sip_bf16, "daemon": dmn_bf16, "aia_call": aia_bf16,
+               "daemon_aia": daia_bf16}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     kernels[2]["launches"] = turn_int8

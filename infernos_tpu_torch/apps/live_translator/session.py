@@ -173,6 +173,7 @@ class LTSession:
         if d.saying is not None or not d.say_queue:
             return
         text = d.say_queue.pop(0)
+        log.debug("LTSession %s %s: say %r", self.id, d.name, text)
         token = object()  # placeholder until the say_id resolves
         d.saying = token
         fut = d.tts_actr.ask(
@@ -201,6 +202,7 @@ class LTSession:
     def tts_say_done(self, dname: str) -> None:
         if self.closed:
             return
+        log.debug("LTSession %s %s: say done", self.id, dname)
         d = self.dirs[dname]
         d.saying = None
         self._pump_say(d)

@@ -63,7 +63,9 @@ class FakePhone:
         except Exception:
             pass
 
-    def call(self, dest, cld="100", timeout=30.0):
+    def call(self, dest, cld="100", timeout=30.0, cli="fakephone"):
+        """Call ``dest`` as caller ``cli`` (the From user the callee's apps
+        see) to number ``cld``; returns the negotiated RTP parameters."""
         # ONE packetizer per call: RTP seq/ts must stay continuous across
         # talk spurts (the ingest jitter buffer asserts strict lseq)
         self._packetizer = RTPPacketizer(8000, 20)
@@ -75,7 +77,7 @@ class FakePhone:
             self.uac.invite_call(
                 SipURI(host=dest[0], port=dest[1]), cld=cld,
                 rtp_laddr=self.rtp_sock.laddr, codec=G711Codec, addr=dest,
-                cli="fakephone"),
+                cli=cli),
             self.loop)
         params = fut.result(timeout)
         self.remote_rtp = params.rtp_target

@@ -1,4 +1,4 @@
-"""Model-serving actors: TTS and STT.
+"""Model-serving actors: TTS, STT and LLM.
 
 Capability parity with the reference's per-model Ray actors:
 
@@ -6,13 +6,14 @@ Capability parity with the reference's per-model Ray actors:
   output_sr)``, session CRUD, ``tts_session_say`` / ``stop_saying``,
   ``get_rand_voice_id`` (``:21-52``);
 - :class:`STTActor` <-> ``Cluster/InfernSTTActor.py``: session CRUD +
-  ``stt_session_soundin`` (``:38-53``).
+  ``stt_session_soundin`` (``:38-53``);
+- :class:`LLMActor` <-> ``Cluster/InfernLLMActor.py``: chat sessions,
+  ``llm_session_textin`` / ``context_add`` (``:42-70``).
 
 Each actor owns one slot-batched engine plus its driver thread; the actor
 mailbox serializes session bookkeeping while the engine free-runs.
 
-Port of ``infernos_tpu/cluster/model_actors.py`` without ``LLMActor`` (the
-LLM path is not ported yet).  What differs, and why:
+Port of ``infernos_tpu/cluster/model_actors.py``.  What differs, and why:
 
 - ``device`` places the engine: the card unless the caller asks for the
   CPU (``utils.platform.default_device`` raises without one).
@@ -29,6 +30,11 @@ LLM path is not ported yet).  What differs, and why:
   in through ``params=`` (``models/convert.py`` ``from_jax_params``).  The
   tiny dims have head dim 12, which the encoder attention kernel does not
   take: on the card a tiny random start fails with the kernel's error.
+- The full LLM start (Qwen2.5-7B) allocates its zeros directly in the
+  int8 layout (``models/quant.py``; shapes from fake tensors, scales fp32
+  as the port keeps them), never as a dense copy; its embedding and
+  readout are drawn from a seeded generator on the device and its final
+  norm is ones, as the reference starts it.
 """
 
 from __future__ import annotations
@@ -42,13 +48,15 @@ import torch
 
 from ..models import hifigan as hfg
 from ..models import presets
+from ..models import qwen
 from ..models import speecht5 as st5
 from ..models import whisper as wsp
 from ..models.convert import cast_floating
 from ..models.tiny_real import serving_dtype
-from ..models.tokenizers import CharTokenizer
+from ..models.tokenizers import ByteTokenizer, CharTokenizer
 from ..serving.driver import EngineDriver
-from ..serving.sessions import STTSession, TTSRequest, TTSSession
+from ..serving.llm_engine import LLMEngine, LLMEngineConfig
+from ..serving.sessions import LLMSession, STTSession, TTSRequest, TTSSession
 from ..serving.speakers import SpeakerBank
 from ..serving.stt_engine import STTEngine, STTEngineConfig
 from ..serving.tts_engine import TTSEngine, TTSEngineConfig
@@ -82,6 +90,30 @@ def _zeros_init(init_fn, device: torch.device, dtype: torch.dtype):
     return _tree_map(lambda t: torch.zeros(
         t.shape, dtype=dtype if t.is_floating_point() else t.dtype,
         device=device), shapes)
+
+
+def qwen_int8_init(cfg: qwen.QwenConfig, device: torch.device,
+                   dtype: torch.dtype, seed: int = 0):
+    """The full LLM start's weights: zeros in the int8 layout of
+    ``quant.quantize_params(qwen.init_params(...))`` (codes int8, scales
+    fp32, the rest ``dtype``), an ``N(0, 0.02)`` embedding and readout from
+    a generator seeded with ``seed`` on ``device``, and a final norm of
+    ones.  All-zero weights collapse generation to token 0, which
+    detokenizes to an empty reply; the random embedding and readout give a
+    varied token stream through the residual path."""
+    from ..models import quant
+
+    params = _zeros_init(lambda g, d, t: quant.quantize_params(
+        qwen.init_params(cfg, g, d, t)), device, dtype)
+    for node in params["layers"].values():
+        if "w_q" in node:
+            node["scale"] = node["scale"].float()
+    g = torch.Generator(device=device).manual_seed(seed)
+    for key in ("embed", "lm_head"):
+        if key in params:
+            params[key]["w"].normal_(0.0, 0.02, generator=g)
+    params["ln_f"]["g"].fill_(1.0)
+    return params
 
 
 class TTSActor(Actor):
@@ -330,3 +362,100 @@ class STTActor(Actor):
         sess = self.sessions.pop(sess_id, None)
         if sess is not None:
             sess.stop()
+
+
+# the LLM actor's engines, each served in the start's dtype
+LLM_TINY_ENGINE = LLMEngineConfig(batch_slots=2, prompt_buckets=(64, 128),
+                                  max_total_tokens=192, max_new_tokens=24)
+# colocated serving (the attendant shares the card with STT and TTS): 4
+# slots x 1k context keep the KV cache near 0.1 GB
+LLM_FULL_ENGINE = LLMEngineConfig(batch_slots=4, prompt_buckets=(128, 256, 512),
+                                  max_total_tokens=1024, max_new_tokens=256)
+# the trained tiny LLM's examples are <= 384 tokens; leave generation headroom
+LLM_TINY_REAL_ENGINE = LLMEngineConfig(batch_slots=4, prompt_buckets=(128, 256, 384),
+                                       max_total_tokens=448, max_new_tokens=64)
+
+
+class LLMActor(Actor):
+    def __init__(self, tiny: bool = True, seed: int = 0,
+                 ecfg: Optional[LLMEngineConfig] = None, params=None,
+                 device=None):
+        self.tiny = tiny
+        self.seed = seed
+        self.ecfg = ecfg
+        self._params = params
+        self.device = device
+        self.sessions: Dict[uuid_mod.UUID, LLMSession] = {}
+        self.engine: Optional[LLMEngine] = None
+        self.driver: Optional[EngineDriver] = None
+        self.tokenizer = ByteTokenizer()
+
+    def start(self) -> None:
+        dev = default_device(self.device)
+        if os.environ.get("INFERNOS_MODEL_MODE") == "tiny-real":
+            from ..models import tiny_real
+
+            if tiny_real.have_tiny_llm():
+                return self._start_tiny_real(dev)
+            log.warning("INFERNOS_MODEL_MODE=tiny-real but no trained tiny "
+                        "LLM checkpoint; falling back")
+        # one card serves the 7B at int8 (about 8.7 GB of weights); the
+        # reference's 14B target (Cluster/InfernLLMWorker.py:64) is placed
+        # over several cards (multi-device work)
+        cfg = presets.QWEN_TINY if self.tiny else presets.QWEN25_7B
+        dtype = serving_dtype(dev)
+        ecfg = self.ecfg or dataclasses.replace(
+            LLM_TINY_ENGINE if self.tiny else LLM_FULL_ENGINE, dtype=dtype)
+        if self._params is not None:
+            params = cast_floating(self._params, dtype)
+        elif self.tiny:
+            params = qwen.init_params(
+                cfg, torch.Generator().manual_seed(self.seed), dev, dtype)
+        else:
+            params = qwen_int8_init(cfg, dev, dtype, self.seed)
+        self._run_engine(params, cfg, ecfg, dev)
+        log.info("LLMActor started (tiny=%s device=%s)", self.tiny, dev)
+
+    def _start_tiny_real(self, dev: torch.device) -> None:
+        """Serve the in-repo-trained attendant LLM (tools/train_tiny_llm.py):
+        real replies within the speechlang vocabulary, EOS from data."""
+        from ..models import tiny_real
+
+        params, cfg = tiny_real.load_tiny_llm(dev)
+        ecfg = self.ecfg or dataclasses.replace(LLM_TINY_REAL_ENGINE,
+                                                dtype=serving_dtype(dev))
+        self._run_engine(params, cfg, ecfg, dev)
+        log.info("LLMActor started (tiny-real trained attendant, device=%s)", dev)
+
+    def _run_engine(self, params, cfg, ecfg, dev) -> None:
+        self.engine = LLMEngine(params, cfg, ecfg,
+                                detokenize=self.tokenizer.detokenize, device=dev)
+        self.engine.warmup()
+        self.driver = EngineDriver(self.engine, name="llm")
+        self.driver.start()
+
+    def on_stop(self) -> None:
+        if self.driver:
+            self.driver.stop(join=False)
+
+    def new_llm_session(self, system_prompt: str = "") -> uuid_mod.UUID:
+        sess = LLMSession(self.engine, tokenize=self.tokenizer,
+                          system_prompt=system_prompt)
+        self.sessions[sess.id] = sess
+        return sess.id
+
+    def llm_session_textin(self, sess_id: uuid_mod.UUID, text: str,
+                           result_cb, auto_ctx_add: bool = True,
+                           req_id=None) -> int:
+        req_id = self.sessions[sess_id].textin(text, result_cb,
+                                               auto_ctx_add=auto_ctx_add,
+                                               req_id=req_id)
+        self.driver.kick()
+        return req_id
+
+    def llm_session_context_add(self, sess_id: uuid_mod.UUID, content: str,
+                                role: str = "user") -> None:
+        self.sessions[sess_id].context_add(content, role=role)
+
+    def llm_session_end(self, sess_id: uuid_mod.UUID) -> None:
+        self.sessions.pop(sess_id, None)

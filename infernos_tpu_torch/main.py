@@ -17,9 +17,6 @@ Port of ``infernos_tpu/main.py``.  What differs, and why:
   does not survive a ``fork``.
 - The XLA compile cache has no counterpart: the kernels are built once per
   checkout by ``ops/build.py``.
-- The AI attendant is not ported yet (its LLM path is ROADMAP Queue 1 item
-  6): :func:`build_cluster` refuses an ``ai_attendant`` profile before it
-  spawns any actor.
 """
 
 from __future__ import annotations
@@ -55,16 +52,11 @@ def build_cluster(iconf: InfernConfig, tiny: bool = False,
     None means the card (``utils.platform.default_device``), which raises
     without one before anything is spawned.
     """
+    from .apps.ai_attendant import AIAActor
     from .apps.live_translator import LTActor
     from .sip.agent import SIPAgent
 
     dev = default_device(device)
-    for key, prof in iconf.apps.items():
-        if isinstance(prof, AIAProfileConf):
-            raise NotImplementedError(
-                f"{key}: the AI attendant is not ported yet (it needs the LLM "
-                f"path, ROADMAP Queue 1 item 6)")
-
     handles: Dict[str, ActorHandle] = {}
     rtp_actr = spawn(
         RTPActor,
@@ -78,9 +70,12 @@ def build_cluster(iconf: InfernConfig, tiny: bool = False,
 
     app_actors: Dict[str, ActorHandle] = {}
     for key, prof in iconf.apps.items():
-        if not isinstance(prof, LTProfileConf):
+        if isinstance(prof, LTProfileConf):
+            h = spawn(LTActor, prof, tiny=tiny, device=dev, name=key)
+        elif isinstance(prof, AIAProfileConf):
+            h = spawn(AIAActor, prof, tiny=tiny, device=dev, name=key)
+        else:
             continue
-        h = spawn(LTActor, prof, tiny=tiny, device=dev, name=key)
         app_actors[key] = h
         handles[key] = h
 
@@ -93,8 +88,12 @@ def build_cluster(iconf: InfernConfig, tiny: bool = False,
     for key, h in app_actors.items():
         prof = iconf.apps[key]
         # the app start is a SEQUENCE of model-actor starts, each entitled
-        # to the full per-model budget: one TTS per language + STT
-        n_models = len(getattr(prof, "tts_langs", None) or ("en",)) + 1
+        # to the full per-model budget: LT starts one TTS per language +
+        # STT; AIA starts TTS + STT + LLM
+        if isinstance(prof, LTProfileConf):
+            n_models = len(getattr(prof, "tts_langs", None) or ("en",)) + 1
+        else:
+            n_models = 3
         h.ask_sync("start", h, sip_actr, rtp_actr, stt_actr=stt_actr,
                    **(start_kwargs or {}),
                    timeout=(n_models + 1) * model_start_timeout())

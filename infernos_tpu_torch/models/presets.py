@@ -6,15 +6,15 @@ Full dims mirror the checkpoints the reference deploys
 ``Cluster/InfernLLMWorker.py:64`` Qwen2.5-14B-Instruct); tiny dims keep
 end-to-end tests fast on CPU with random weights.
 
-Port of ``infernos_tpu/models/presets.py`` without the Qwen entries: the
-LLM path is not ported yet, so this module has no ``QWEN25_14B``,
-``QWEN25_7B`` or ``QWEN_TINY``.  The tiny random dims (head dim 12) run on
-the CPU only: the encoder attention kernel takes head dim 64.
+Port of ``infernos_tpu/models/presets.py``.  The tiny random Whisper dims
+(head dim 12) run on the CPU only: the encoder attention kernel takes head
+dim 64.
 """
 
 from __future__ import annotations
 
 from . import hifigan as hfg
+from . import qwen
 from . import speecht5 as st5
 from . import vad as vad_m
 from . import whisper as wsp
@@ -24,6 +24,15 @@ from . import whisper as wsp
 SPEECHT5_FULL = st5.SpeechT5Config()
 HIFIGAN_FULL = hfg.HifiGanConfig()
 WHISPER_LARGE_V3 = wsp.WhisperConfig()
+QWEN25_14B = qwen.QwenConfig()
+# Qwen2.5-7B-Instruct dims: the single-card serving point (int8 weights,
+# about 8.7 GB); the 14B target is placed over several cards (multi-device
+# work)
+QWEN25_7B = qwen.QwenConfig(
+    vocab_size=152064, hidden_size=3584, num_layers=28, num_heads=28,
+    num_kv_heads=4, head_dim=128, intermediate_size=18944,
+    rope_theta=1000000.0, max_positions=32768,
+)
 VAD_FULL = vad_m.VADConfig()
 
 # -- tiny (tests / smoke) -------------------------------------------------------
@@ -47,4 +56,9 @@ WHISPER_TINY_TEST = wsp.WhisperConfig(
     encoder_attention_heads=4, decoder_layers=2, decoder_attention_heads=4,
     ffn_dim=96, max_source_positions=400, max_target_positions=64,
     eos_token_id=2, sot_token_id=3, no_speech_token_id=4,
+)
+QWEN_TINY = qwen.QwenConfig(
+    vocab_size=300, hidden_size=48, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=12, intermediate_size=96, rope_theta=10000.0, max_positions=512,
+    eos_token_id=2, tie_word_embeddings=False,
 )

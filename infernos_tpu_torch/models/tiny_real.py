@@ -1,9 +1,10 @@
-"""Loaders for the in-repo-trained tiny-but-real STT/TTS pair.
+"""Loaders for the in-repo-trained tiny-but-real STT/TTS/LLM trio.
 
 Port of ``infernos_tpu/models/tiny_real.py``.  ``tools/train_tiny_stt.py``
 and ``tools/train_tiny_tts.py`` train small Whisper and SpeechT5 configs on
 the synthetic spoken language (``tools/speechlang.py``) until transcripts
-round-trip.  Serving them makes every end-to-end number meaningful: EOS
+round-trip; ``tools/train_tiny_llm.py`` trains a small Qwen config on the
+attendant policy, whose replies use that language's words.  Serving them makes every end-to-end number meaningful: EOS
 fires from data and a transcript can be checked word for word.
 
 The checkpoints are read by path from ``infernos_tpu/models/data/tiny_*``
@@ -15,8 +16,8 @@ Dtype: the reference serves tiny-real in fp32.  The port's kernels take
 bf16 only (the attention kernel refuses an fp32 q; the decoder-step kernel
 takes bf16 caches and bf16 or int8 weights), so on a CUDA device the
 parameters and the STT engine config are bf16, and on the CPU fp32
-(:func:`serving_dtype`).  This is a deliberate difference from the
-reference.  ``load_tiny_llm`` is not ported yet.
+(:func:`serving_dtype`); the tiny LLM follows the same rule.  This is a
+deliberate difference from the reference.
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ def have_tiny_stt() -> bool:
 def have_tiny_tts() -> bool:
     return os.path.exists(os.path.join(data_path("tiny_tts"),
                                        "t5_params.npz"))
+
+
+def have_tiny_llm() -> bool:
+    return os.path.exists(os.path.join(data_path("tiny_llm"), "params.npz"))
 
 
 def serving_dtype(device) -> torch.dtype:
@@ -145,3 +150,20 @@ def load_tiny_tts(vocoder: str = None, device=None):
         vcfg = _load_cfg(d, HifiGanConfig, "voc_config.json")
         voc_params = load_params(os.path.join(d, "voc_params.npz"), dev, dtype)
     return params, cfg, voc_params, vcfg, tok, table
+
+
+def load_tiny_llm(device=None):
+    """-> (params, QwenConfig) on ``default_device(device)``, in
+    :func:`serving_dtype`.
+
+    Trained by ``tools/train_tiny_llm.py`` on the attendant-policy dialogue
+    task; its tokenizer is the plain ``ByteTokenizer`` (the trainer encodes
+    ChatML with it, so no tokenizer files are needed).
+    """
+    from .qwen import QwenConfig
+
+    dev = default_device(device)
+    d = data_path("tiny_llm")
+    cfg = _load_cfg(d, QwenConfig)
+    params = load_params(os.path.join(d, "params.npz"), dev, serving_dtype(dev))
+    return params, cfg

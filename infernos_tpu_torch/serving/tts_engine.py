@@ -50,6 +50,7 @@ from ..ops.tts_step import MAX_B, fused_decode_step, pack_fused_weights
 from ..utils.logging import get_logger
 from ..utils.metrics import metrics
 from ..utils.platform import default_device
+from .fetch import HostFetch
 
 log = get_logger("serving.tts")
 
@@ -104,33 +105,6 @@ class _Session:
         self.t_first: Optional[float] = None
         self.cancelled = False
         self.paused = False
-
-
-class _Fetch:
-    """One tick's ``(audio [B, n] float32, frame_valid [B, n] bool)`` on its
-    way to the host.  For CUDA tensors: asynchronous copies into pinned
-    buffers, then an event on the current stream; :meth:`get` waits on that
-    event alone.  For CPU tensors: the arrays themselves."""
-
-    __slots__ = ("audio", "valid", "event")
-
-    def __init__(self, audio: torch.Tensor, valid: torch.Tensor):
-        audio = audio.float()
-        self.event = None
-        if audio.device.type == "cuda":
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in (audio, valid)]
-            host[0].copy_(audio, non_blocking=True)
-            host[1].copy_(valid, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(audio.device))
-            audio, valid = host
-        self.audio, self.valid = audio, valid
-
-    def get(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return self.audio.numpy(), self.valid.numpy()
 
 
 def check_slots(batch_slots: int, device: torch.device) -> None:
@@ -497,9 +471,9 @@ class TTSEngine:
             self.tick_ms.append((now - self._last_dispatch_t) * 1e3)
             metrics.observe("tts.tick_s", now - self._last_dispatch_t)
         self._last_dispatch_t = now
-        return _Fetch(audio, frame_valid), n_frames, list(self.sessions), paused
+        return HostFetch(audio.float(), frame_valid), n_frames, list(self.sessions), paused
 
-    def _harvest(self, fetch: _Fetch, n_frames, snapshot,
+    def _harvest(self, fetch: HostFetch, n_frames, snapshot,
                  paused_at_dispatch) -> None:
         """Deliver one tick to the sessions live at its dispatch."""
         audio_np, valid_np = fetch.get()

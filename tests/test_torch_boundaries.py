@@ -18,8 +18,11 @@
 - the native media engine builds under the port's own ``build/`` and names
   no path of the reference's ``native/`` directory;
 - the daemon's entry point and a CPU ``build_cluster``/``stop_all`` load no
-  ``jax`` or reference module (fresh interpreter), and ``build_cluster``
-  demands a card unless the CPU is asked.
+  ``jax`` or reference module (fresh interpreter), with a LiveTranslator
+  and with an AI attendant profile, and ``build_cluster`` demands a card
+  unless the CPU is asked;
+- the LLM engine, the ``LLMActor`` start and the tiny LLM loader demand a
+  card unless the CPU is asked.
 """
 
 import ast
@@ -394,6 +397,64 @@ def test_daemon_cluster_loads_no_jax_or_reference(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=240).stdout
     assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_attendant_cluster_loads_no_jax_or_reference(tmp_path):
+    """An AI attendant cluster (STT, TTS and LLM actors; tiny random models,
+    SIP bound on port 25095, RTP 38500-38590, used by no other test file)
+    built and stopped on the CPU in a fresh interpreter leaves no ``jax`` or
+    reference module loaded."""
+    cfg = tmp_path / "aia.yaml"
+    cfg.write_text("sip:\n  settings:\n    bind: 127.0.0.1:25095\n  profiles:\n"
+                   "    inbound:\n      sink: apps/ai_attendant/a1\n"
+                   "rtp:\n  settings:\n    min_port: 38500\n    max_port: 38590\n"
+                   "apps:\n  ai_attendant:\n    profiles:\n      a1:\n"
+                   "        stt_lang: en\n        tts_lang: en\n")
+    code = (
+        "import json, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import infernos_tpu_torch.main as m\n"
+        "from infernos_tpu_torch.cluster.actors import lookup, stop_all\n"
+        "from infernos_tpu_torch.config import InfernConfig\n"
+        f"h = m.build_cluster(InfernConfig({str(cfg)!r}), tiny=True, device='cpu')\n"
+        "assert h['sip'].ask_sync('ready_check')[1] > 0\n"
+        "assert lookup('llm:a1')._actor.engine.device == torch.device('cpu')\n"
+        "stop_all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'infernos_tpu'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=240).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("what", ["engine", "actor", "tiny_llm"])
+def test_llm_entry_points_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
+    from infernos_tpu_torch.cluster import model_actors as ma
+    from infernos_tpu_torch.models import presets, qwen, tiny_real
+    from infernos_tpu_torch.serving import llm_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("INFERNOS_MODEL_MODE", raising=False)
+    cfg = presets.QWEN_TINY
+    params = qwen.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ecfg = llm_engine.LLMEngineConfig(batch_slots=1, prompt_buckets=(8,),
+                                      max_total_tokens=16, max_new_tokens=4)
+
+    def start_actor(**kw):
+        actor = ma.LLMActor(tiny=True, **kw)
+        try:
+            actor.start()
+            return actor.engine.device
+        finally:
+            actor.on_stop()
+
+    make = {"engine": lambda **kw: llm_engine.LLMEngine(params, cfg, ecfg, **kw).device,
+            "actor": start_actor,
+            "tiny_llm": lambda **kw: tiny_real.load_tiny_llm(**kw)[0]["embed"]["w"].device}[what]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu") == torch.device("cpu")
 
 
 def test_build_cluster_demands_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):

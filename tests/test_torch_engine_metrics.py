@@ -1,13 +1,15 @@
 """The port's engines emit the JAX engines' metrics.
 
-The same tiny-real requests go through both packages' STT and TTS engines
-(fp32 on the CPU), each package's engine modules writing to a fresh
+The same tiny-real requests go through both packages' STT, TTS and LLM
+engines (fp32 on the CPU), each package's engine modules writing to a fresh
 ``Metrics`` registry.  Both registries must hold the same metric names, and
 equal values for the counters and gauges and equal counts for every
 observation (the observed values are times, except ``stt.audio_s``, the
 utterances' seconds, which must be equal too, to 1e-9).  One poisoned
 request and one poisoned session exercise the quarantine counters.  Prenet
-dropout is off in both, so both decoders stop on the same step.
+dropout is off in both, so both decoders stop on the same step.  The LLM
+engines (``llm.*``) serve the same chat requests with K 4 decode steps per
+dispatch and with speculative decode, and quarantine one poisoned request.
 """
 
 import dataclasses
@@ -16,20 +18,28 @@ import numpy as np
 import pytest
 import torch
 
+import infernos_tpu.serving.llm_engine as jllm
 import infernos_tpu.serving.stt_engine as jstt
 import infernos_tpu.serving.tts_engine as jtts
 from infernos_tpu.models import tiny_real as jtiny
+from infernos_tpu.models.tokenizers import ByteTokenizer as JByteTokenizer
 from infernos_tpu.utils.metrics import Metrics as JMetrics
+import infernos_tpu_torch.serving.llm_engine as pllm
 import infernos_tpu_torch.serving.stt_engine as pstt
 import infernos_tpu_torch.serving.tts_engine as ptts
 from infernos_tpu_torch.audio import speechlang
 from infernos_tpu_torch.audio.chunk import AudioChunk
 from infernos_tpu_torch.models import tiny_real as ptiny
+from infernos_tpu_torch.models.tokenizers import ByteTokenizer
 from infernos_tpu_torch.utils.metrics import Metrics as PMetrics
 
 TTS_KW = dict(batch_slots=4, max_text_tokens=48, max_steps=60, stop_threshold=0.5)
 TEXTS = ("favor ajuda agora", "quero ajuda")
 SAYINGS = (("please help now", 5), ("want help today", 7))
+CHATS = ("<incoming call from agent (445572)>", "transfer me to billing please",
+         "what is my order status")
+LLM_KW = dict(batch_slots=2, prompt_buckets=(128, 256, 384), max_total_tokens=448,
+              max_new_tokens=64)
 
 
 @pytest.fixture(autouse=True)
@@ -117,3 +127,38 @@ def test_engines_emit_the_same_metrics(monkeypatch):
     assert p_counts == j_counts
     np.testing.assert_allclose(preg.hists["stt.audio_s"].values,
                                jreg.hists["stt.audio_s"].values, atol=1e-9)
+
+
+def _run_llm(mod, params, cfg, tok, **kw):
+    eng = mod.LLMEngine(params, cfg, mod.LLMEngineConfig(**LLM_KW, **kw),
+                        detokenize=tok.detokenize,
+                        **({"device": "cpu"} if mod is pllm else {}))
+    out = []
+    for text in CHATS:
+        prompt = mod.apply_chat_template([{"role": "system", "content": "be brief"},
+                                          {"role": "user", "content": text}])
+        eng.submit(mod.LLMRequest(tok(prompt), lambda s, fin: fin and out.append(s)))
+    # a poisoned request (non-numeric ids) finishes alone, empty
+    eng.submit(mod.LLMRequest(np.array(["bogus"]), lambda s, fin: fin and out.append(s)))
+    while eng.step():
+        pass
+    return sorted(out)
+
+
+def test_llm_engines_emit_the_same_metrics(monkeypatch):
+    jreg, preg = JMetrics(), PMetrics()
+    monkeypatch.setattr(jllm, "metrics", jreg)
+    monkeypatch.setattr(pllm, "metrics", preg)
+    jparams, jcfg = jtiny.load_tiny_llm()
+    params, cfg = ptiny.load_tiny_llm("cpu")
+    for kw in ({"steps_per_dispatch": 4}, {"spec_decode": True, "spec_k": 4}):
+        j_out = _run_llm(jllm, jparams, jcfg, JByteTokenizer(), **kw)
+        p_out = _run_llm(pllm, params, cfg, ByteTokenizer(), **kw)
+        assert p_out == j_out and "" in p_out and len(p_out) == len(CHATS) + 1
+    j_names, j_scalars, j_counts = _split(jreg)
+    p_names, p_scalars, p_counts = _split(preg)
+    assert p_names == j_names
+    assert {"llm.gen_time.count", "llm.tokens", "llm.poisoned_requests",
+            "llm.spec_emit.count"} <= p_names
+    assert p_scalars == j_scalars and p_scalars["llm.poisoned_requests"] == 2
+    assert p_counts == j_counts and p_counts["llm.gen_time.count"] == 2 * len(CHATS)

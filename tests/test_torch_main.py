@@ -6,8 +6,8 @@
   binds a socket or spawns an actor; without ``-f`` the daemon child logs
   that message (the parent has returned 0 at the fork).
 - With ``INFERNOS_DEVICE=cpu -t`` it comes up in the foreground and
-  forked, answers a SIP OPTIONS, and exits 0 on SIGTERM.
-- An ``ai_attendant`` profile is refused before any actor is spawned.
+  forked, answers a SIP OPTIONS, and exits 0 on SIGTERM; so does it with
+  an ``ai_attendant`` profile (STT, TTS and LLM actors).
 Ports: SIP 25090-25093, RTP 35000-35800 (no other test file uses them;
 test_torch_boundaries.py takes SIP 25094 and RTP 35900-35990).
 """
@@ -27,7 +27,6 @@ import torch
 import chip_smoke as cs
 from infernos_tpu_torch import main as pmain
 from infernos_tpu_torch.cluster import actors
-from infernos_tpu_torch.config import InfernConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 NO_CARD = "no CUDA device"
@@ -183,9 +182,20 @@ def test_cpu_daemon_forked_answers_and_stops(tmp_path):
             os.kill(pid, signal.SIGKILL)
 
 
-def test_ai_attendant_profile_refused_before_any_actor(tmp_path):
-    iconf = InfernConfig(str(_config(tmp_path, 25093, 35600, app="ai_attendant")))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pmain.build_cluster(iconf, tiny=True, device="cpu")
-    assert actors.lookup("sip") is None and actors.lookup("rtp") is None
-    assert _port_free(25093)
+def test_cpu_daemon_serves_an_ai_attendant_profile(tmp_path):
+    cfg = _config(tmp_path, 25093, 35600, app="ai_attendant")
+    log = tmp_path / "aia.log"
+    with open(log, "w") as sink:
+        proc = subprocess.Popen([sys.executable, "-m", "infernos_tpu_torch", "-f", "-t",
+                                 str(cfg)], cwd=tmp_path, env=_env(INFERNOS_DEVICE="cpu"),
+                                stdout=sink, stderr=subprocess.STDOUT)
+    try:
+        text = _wait_log(log, "infernos_tpu_torch up", proc)
+        assert "LLMActor started" in text and "AIAActor c1 ready" in text
+        assert cs.sip_options(("127.0.0.1", 25093)) == 200
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0, log.read_text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -13,7 +13,13 @@
 - A tiny random STT session with context decodes its second utterance
   (the tiny config's ``sot_prev`` lies inside its vocabulary).
 - Full-dims starts without weights zero-initialise on the device in the
-  serving dtype, with the tree that ``init_params`` makes.
+  serving dtype, with the tree that ``init_params`` makes; the full LLM
+  start makes the int8 tree of ``quantize_params(init_params(...))`` at
+  Qwen2.5-7B dims (traced with fake tensors here: no memory), codes int8,
+  scales fp32, with a random embedding and readout and a final norm of ones.
+- ``LLMActor``: tiny-real (the trained tiny LLM) and tiny random (the JAX
+  actor's weights through ``params=``) give the JAX actor's replies through
+  the session API.
 - ``device`` reaches the engines; without a card and without
   ``device="cpu"`` an actor's start raises.
 """
@@ -26,10 +32,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 import infernos_tpu.models.tiny_real as jtiny
 import infernos_tpu.serving.sessions as jses
 from infernos_tpu.audio.chunk import AudioChunk as JChunk
 from infernos_tpu.cluster.actors import spawn as jspawn
+from infernos_tpu.cluster.model_actors import LLMActor as JLLMActor
 from infernos_tpu.cluster.model_actors import STTActor as JSTTActor
 from infernos_tpu.cluster.model_actors import TTSActor as JTTSActor
 import infernos_tpu_torch.models.tiny_real as ptiny
@@ -38,7 +46,8 @@ from infernos_tpu_torch.audio import speechlang
 from infernos_tpu_torch.audio.chunk import AudioChunk
 from infernos_tpu_torch.cluster import model_actors as ma
 from infernos_tpu_torch.cluster.actors import spawn
-from infernos_tpu_torch.models import presets
+from infernos_tpu_torch.models import presets, quant
+from infernos_tpu_torch.models import qwen
 from infernos_tpu_torch.models import speecht5 as st5
 from infernos_tpu_torch.models import whisper as wsp
 from infernos_tpu_torch.models.convert import from_jax_params
@@ -192,7 +201,102 @@ def test_zeros_init_allocates_the_init_tree_in_the_serving_dtype(what):
         assert not g.any()
 
 
-@pytest.mark.parametrize("cls", ["STTActor", "TTSActor"])
+def _replies(actor, texts):
+    """Each text sent in turn through one LLM session; the final replies."""
+    sid = actor.ask_sync("new_llm_session", cs.TINY_LLM_PROMPT)
+    out = []
+    for text in texts:
+        done = threading.Event()
+        parts = []
+
+        def cb(r, parts=parts, done=done):
+            parts.append(r.text)
+            if r.is_final:
+                done.set()
+
+        actor.call("llm_session_textin", sid, text, cb)
+        assert done.wait(120.0), "LLM actor did not answer"
+        out.append(" ".join(p for p in parts if p))
+    actor.ask_sync("llm_session_end", sid)
+    return out
+
+
+CHATS = ("<incoming call from agent (445572)>", "transfer me to billing please")
+
+
+def test_tiny_real_llm_actor_matches_the_reference(monkeypatch):
+    monkeypatch.setenv("INFERNOS_MODEL_MODE", "tiny-real")
+    j = jspawn(JLLMActor, name="j-llm")
+    p = spawn(ma.LLMActor, device="cpu", name="p-llm")
+    try:
+        j.ask_sync("start", timeout=300)
+        p.ask_sync("start", timeout=300)
+        assert p._actor.engine.device == torch.device("cpu")
+        assert p._actor.engine.ecfg.dtype == torch.float32
+        got = _replies(p, CHATS)
+        assert got == _replies(j, CHATS)
+        assert got[0] == "hello this is the service team"
+    finally:
+        j.stop()
+        p.stop()
+
+
+def test_tiny_random_llm_actor_on_reference_weights(monkeypatch):
+    monkeypatch.delenv("INFERNOS_MODEL_MODE", raising=False)
+    j = jspawn(JLLMActor, tiny=True, seed=3, name="j-llm-rand")
+    p = None
+    try:
+        j.ask_sync("start", timeout=300)
+        params = from_jax_params(
+            jax.tree_util.tree_map(np.asarray, j._actor.engine.params), "cpu")
+        p = spawn(ma.LLMActor, tiny=True, params=params, device="cpu", name="p-llm-rand")
+        p.ask_sync("start", timeout=300)
+        got = _replies(p, CHATS)
+        assert got == _replies(j, CHATS)
+        assert p._actor.engine.ecfg.batch_slots == 2 and any(got)
+    finally:
+        j.stop()
+        if p is not None:
+            p.stop()
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("cfg_name", ["QWEN_TINY", "QWEN25_7B"])
+def test_llm_full_start_makes_the_int8_tree(cfg_name):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = getattr(presets, cfg_name)
+    with FakeTensorMode():  # shapes and types only: 7B needs no memory here
+        ref = dict(_flat(quant.quantize_params(
+            qwen.init_params(cfg, torch.Generator(), "cpu", torch.bfloat16))))
+        fake = dict(_flat(ma.qwen_int8_init(cfg, torch.device("cpu"), torch.bfloat16)))
+        q_bytes = quant.quantized_bytes(dict(fake=list(fake.values())))
+    assert set(fake) == set(ref)
+    for k, r in ref.items():
+        want = torch.float32 if k[-1] == "scale" else r.dtype
+        assert fake[k].shape == r.shape and fake[k].dtype == want, k
+    assert any(k[-1] == "w_q" for k in ref)
+    if cfg_name == "QWEN25_7B":
+        assert 8.5e9 < q_bytes < 9.0e9  # int8 codes + bf16 embedding/readout
+        return
+    got = dict(_flat(ma.qwen_int8_init(cfg, torch.device("cpu"), torch.bfloat16, seed=1)))
+    for k, t in got.items():
+        if k[0] in ("embed", "lm_head"):
+            assert 0.015 < t.float().std() < 0.025, k
+        elif k[0] == "ln_f":
+            assert torch.equal(t, torch.ones_like(t))
+        else:
+            assert not t.any(), k
+
+
+@pytest.mark.parametrize("cls", ["STTActor", "TTSActor", "LLMActor"])
 def test_actor_start_demands_a_card_unless_cpu_is_asked(monkeypatch, cls):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("INFERNOS_MODEL_MODE", raising=False)
