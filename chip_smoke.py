@@ -70,25 +70,45 @@ Phases, each printing one JSON line:
                HiFi-GAN + AmendNet, zero weights): one call of two
                utterances, STT, LLM and TTS work on ``/metrics``, paced RTP
                holding the emitted audio, exit 0 within 30 s of SIGTERM;
-15. launches -- the kernels and copies the card runs for one
+15. paced_tts -- ``python -m infernos_tpu_torch.bench.ttsmain`` (full-width
+               SpeechT5 + HiFi-GAN, zero weights, bf16, 24 slots) ramping
+               paced calls over 8 s levels: every level spoke, one step
+               kernel launch per step; prints the paced calls and ticks;
+16. lt_bench_tiny -- ``python -m infernos_tpu_torch.bench.ltbench
+               --tiny-real --calls 4 --turns 2``: four two-leg calls of real
+               speech through SIP, VAD, the tiny STT, T2T and the tiny TTS;
+               4 answered, 8 turns measured, none failed;
+17. lt_ramp -- ``python -m infernos_tpu_torch.bench.ltbench --ramp --full
+               --turns 2`` at full width on the ladder 1, 2, 4 calls:
+               the north star's ``lt_calls_per_chip``, each level's turn
+               latency, the engines' stage metrics;
+18. loopback -- ``python -m infernos_tpu_torch.bench.loopback --speakers 4
+               --prompts 2``: tiny-real TTS into tiny-real STT, mean
+               similarity at least the reference's on the CPU less 0.1;
+19. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Weights are random, from fixed seeds, except in ``rtp_call``,
-``sip_call``, ``llm_tiny`` and ``aia_call``, which serve the vendored
-trained tiny models, and ``daemon`` and ``daemon_aia``, which start with
-zero weights as the actors do without a checkpoint (the LLM's embedding and
-readout random, as its actor starts them).
+``sip_call``, ``llm_tiny``, ``aia_call``, ``lt_bench_tiny`` and
+``loopback``, which serve the vendored trained tiny models, and
+``daemon``, ``daemon_aia``, ``paced_tts`` and ``lt_ramp``, which start
+with zero weights as the actors do without a checkpoint (the LLM's
+embedding and readout random, as its actor starts them).
 Every check that fails raises, so the script exits non-zero and prints no
 result line; it never falls back to the CPU or to a plain version.  Each
 kernel's launch count is set to 0 right before the path that runs it and
 read right after (in ``daemon`` and ``daemon_aia``, by the daemon's
-process, reported on SIGUSR2 after its warm-ups and after the calls).
+process, reported on SIGUSR2 after its warm-ups and after the calls; in
+the bench phases, by the bench's process under ``BENCH_PRELUDE``).  The
+bench phases hold checks, not SLAs: their latencies and rates are printed
+as measurements.
 ``--only kernels`` stops after the kernel phases and ``--only attention``
-after the first of them (quick build-and-compare runs; they print no result
-line).
+after the first of them (quick build-and-compare runs); ``--only benches``
+runs the four bench phases alone after the build.  They print no result
+line.
 """
 
 from __future__ import annotations
@@ -114,6 +134,12 @@ ATTN_TOL = 1e-2  # bf16 output: the plain version computes in fp32 from the same
 STEP_TOL = 3e-2  # fp32 hidden after 6 layers of bf16 weights; cache rows rounded to bf16
 ENC_REL_TOL = 5e-2  # relative L2 error of the 32-layer encoder output, bf16 activations
 MEL_REL_TOL = 5e-2  # relative L2 error of one TTS tick's mel chunk (16 chained steps), bf16
+# loopback QA's mean similarity on the tiny-real pair, 4 voices x 2 prompts:
+# the reference package's on the CPU in fp32 (tests/test_torch_loopback.py
+# holds the port's cells equal to it on the reference's draws); the card's
+# phase, bf16 on the port's own draws, must reach it less 0.1
+LOOPBACK_REF_MEAN = 0.98508
+LOOPBACK_BAR = LOOPBACK_REF_MEAN - 0.1
 
 
 _T0 = time.monotonic()
@@ -2796,6 +2822,261 @@ def phase_daemon_aia(torch):
     return calls["attention"], calls["bf16_step"]
 
 
+# -- phases 15-18: the benches, each its own entry in a subprocess ----------
+
+# runs ``python -m <module> <args>`` as the bench's own main; counts the
+# kernels' launches from 0 and keeps every STT and TTS engine made, and
+# writes the launches with the engines' encodes and steps to
+# ``$CHIP_SMOKE_WORK.warm`` when ``build_cluster`` returns (the actors'
+# warm-ups done) and to ``$CHIP_SMOKE_WORK.done`` at the end, also when the
+# bench ends its process with ``os._exit``
+BENCH_PRELUDE = """
+import importlib, json, os, sys
+import infernos_tpu_torch.main as entry
+from infernos_tpu_torch.ops import attention as attn, tts_step as ts
+from infernos_tpu_torch.serving import stt_engine, tts_engine
+
+made = {"stt": [], "tts": []}
+
+
+def keep(cls, kind):
+    init = cls.__init__
+
+    def wrapped(self, *a, **kw):
+        init(self, *a, **kw)
+        made[kind].append(self)
+    cls.__init__ = wrapped
+
+
+def report(tag):
+    work = {"attention": attn.fused_attention.launches,
+            "bf16_step": ts.fused_decode_step.launches,
+            "int8_step": ts.fused_decode_step.launches_int8,
+            "encoder_layers": sorted({e.cfg.encoder_layers for e in made["stt"]}),
+            "encodes": sum(len(e.encode_ms) for e in made["stt"]),
+            "encoder_layer_runs": sum(e.cfg.encoder_layers * len(e.encode_ms) for e in made["stt"]),
+            "steps": sum(n // e.cfg.reduction_factor for e in made["tts"]
+                         for n in list(e.tick_frames))}
+    with open(os.environ["CHIP_SMOKE_WORK"] + "." + tag, "w") as f:
+        json.dump(work, f)
+
+
+def build_cluster(*a, build=entry.build_cluster, **kw):
+    handles = build(*a, **kw)
+    report("warm")
+    return handles
+
+
+def exit_now(rc, real=os._exit):
+    report("done")
+    real(rc)
+
+
+keep(stt_engine.STTEngine, "stt")
+keep(tts_engine.TTSEngine, "tts")
+entry.build_cluster = build_cluster
+os._exit = exit_now
+attn.fused_attention.launches = 0
+ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+importlib.import_module(module).main()
+report("done")
+"""
+WORK_KEYS = ("attention", "bf16_step", "int8_step", "encodes", "encoder_layer_runs", "steps")
+
+
+def run_bench(name: str, module: str, args, timeout: float, env_extra=None) -> dict:
+    """``python -m module args`` under ``BENCH_PRELUDE`` on the card (no
+    tiny, tiny-real or CPU mode from this process's environment), at most
+    ``timeout`` s.  Returns its exit code, seconds, standard output and
+    error, JSON lines, and the work it reported (``warm``: after its
+    cluster's start, if it built one; ``done``: at its end).  Prints its
+    standard error's tail when it exits non-zero."""
+    import subprocess
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    work = os.path.join(tmp, "work")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("INFERNOS_MODEL_MODE", "INFERNOS_DEVICE", "INFERNOS_TINY")}
+    env.update(env_extra or {}, CHIP_SMOKE_WORK=work)
+    t0 = time.monotonic()
+    with open(os.path.join(tmp, "out"), "w+") as out, open(os.path.join(tmp, "err"), "w+") as err:
+        proc = subprocess.Popen([sys.executable, "-c", BENCH_PRELUDE, module, *args],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=out, stderr=err, stdin=subprocess.DEVNULL)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        out.seek(0)
+        err.seek(0)
+        r = types.SimpleNamespace(rc=rc, seconds=time.monotonic() - t0, out=out.read(),
+                                  err=err.read())
+    r.lines = []
+    for ln in r.out.splitlines():
+        if ln.startswith("{"):
+            with contextlib.suppress(json.JSONDecodeError):
+                r.lines.append(json.loads(ln))
+    r.work = {}
+    for tag in ("warm", "done"):
+        with contextlib.suppress(FileNotFoundError):
+            with open(f"{work}.{tag}") as f:
+                r.work[tag] = json.load(f)
+    if rc != 0:
+        print(f"---- {name}: {module} exited {rc}; standard error ends ----\n"
+              + r.err[-8000:], file=sys.stderr, flush=True)
+    return r
+
+
+def bench_launches(r, name: str) -> dict:
+    """The kernels a bench run launched on its path (after its cluster's
+    warm-ups when it built one), held to its engines' work: kernel 1 once
+    per encoder layer per encode, kernel 2 (bf16) once per TTS step, int8
+    never."""
+    check("done" in r.work, f"{name}: the bench reported no kernel launches")
+    done, warm = r.work["done"], r.work.get("warm", dict.fromkeys(WORK_KEYS, 0))
+    calls = {k: done[k] - warm[k] for k in WORK_KEYS}
+    check(calls["attention"] == calls["encoder_layer_runs"],
+          f"{name}: attention kernel launched {calls['attention']} times for "
+          f"{calls['encodes']} encodes of {done['encoder_layers']} layers")
+    check(calls["bf16_step"] == calls["steps"] and calls["steps"] > 0,
+          f"{name}: bf16 step kernel launched {calls['bf16_step']} times for "
+          f"{calls['steps']} steps")
+    check(done["int8_step"] == 0, f"{name}: the int8 step kernel launched {done['int8_step']} times")
+    return calls
+
+
+PACED_TTS_SECONDS = "8"  # BENCH_SECONDS: each paced level's measuring window
+
+
+def phase_paced_tts(torch):
+    """Phase ``paced_tts``: ``python -m infernos_tpu_torch.bench.ttsmain``
+    (SpeechT5 + HiFi-GAN at full width, zero weights, bf16, 24 slots,
+    async harvest) with 8 s levels.  Checks: its JSON line parses, every
+    level spoke (utterances > 0), the bf16 step kernel launched once per
+    TTS step and int8 never.  Prints the paced calls at p95 TTFB < 200 ms
+    with no underruns, the probe's streams, each level's TTFB and tick.
+    Returns the bf16 step launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("paced_tts", "infernos_tpu_torch.bench.ttsmain", [], timeout=300,
+                  env_extra={"BENCH_SECONDS": PACED_TTS_SECONDS})
+    check(r.rc == 0, f"paced_tts: ttsmain exited {r.rc}")
+    check(r.lines and r.lines[-1].get("metric") == "tts_paced_concurrent_calls_per_chip",
+          f"paced_tts: no result line: {r.out[-2000:]}")
+    res = r.lines[-1]
+    calls = bench_launches(r, "paced_tts")
+    d = res["detail"]
+    emit("paced_tts", card=card_info(), seconds=r.seconds, paced_calls=res["value"],
+         unit=res["unit"], probe_streams=d["throughput_streams_probe"],
+         batch_slots=d["batch_slots"], utterance_frames=d["utterance_frames"],
+         best_ttfb_p50_s=d["best_ttfb_p50_s"], best_ttfb_p95_s=d["best_ttfb_p95_s"],
+         levels=d["levels"], warmup_s=d["warmup_s"], device=d["device"], launches=calls)
+    check(d["platform"] == "gpu" and d["device"] == torch.cuda.get_device_name(0),
+          f"paced_tts: the bench ran on {d['platform']} {d['device']}")
+    check(d["levels"] and all(lv["utterances"] > 0 for lv in d["levels"]),
+          f"paced_tts: a level spoke no utterance: {d['levels']}")
+    return calls["bf16_step"]
+
+
+def phase_lt_bench_tiny(torch):
+    """Phase ``lt_bench_tiny``: ``python -m infernos_tpu_torch.bench.ltbench
+    --tiny-real --calls 4 --turns 2``: four concurrent two-leg calls through
+    SIP, the actors, VAD, the trained tiny STT, T2T and the tiny TTS
+    (bf16), each Alice speaking two speech-language lines.  Checks: 4
+    answered, 8 turns measured, no failed turn, the child's exit 0, and the
+    calls' kernel launches (kernel 1 = 2 x encodes).  Prints the turn
+    latency p50/p95.  Returns the calls' launches (attention, bf16 step)."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("lt_bench_tiny", "infernos_tpu_torch.bench.ltbench",
+                  ["--tiny-real", "--calls", "4", "--turns", "2"], timeout=300)
+    res = r.lines[-1] if r.lines else {}
+    calls = bench_launches(r, "lt_bench_tiny") if r.rc == 0 else None
+    emit("lt_bench_tiny", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
+         launches=calls)
+    check(r.rc == 0, f"lt_bench_tiny: ltbench exited {r.rc}")
+    check(res.get("answered") == 4 and res.get("turns") == 8 and res.get("failures") == 0,
+          f"lt_bench_tiny: want 4 answered, 8 turns measured, 0 failures: {res}")
+    check(r.work["done"]["encoder_layers"] == [2],
+          f"lt_bench_tiny: encoder layers {r.work['done']['encoder_layers']}, want the tiny STT's 2")
+    return calls["attention"], calls["bf16_step"]
+
+
+LT_RAMP_LEVELS = "1,2,4"  # within half the script's time limit
+LT_RAMP_ENV = {"INFERNOS_STT_MAX_NEW": "24", "INFERNOS_TTS_SLOTS": "32",
+               "INFERNOS_STT_SLOTS": "24"}  # the flagship's defaults
+
+
+def phase_lt_ramp(torch):
+    """Phase ``lt_ramp``: ``python -m infernos_tpu_torch.bench.ltbench
+    --ramp --full --turns 2`` at full width (Whisper-large-v3 tiered STT,
+    24 + 8 slots; two SpeechT5 + HiFi-GAN + AmendNet TTS engines of 32
+    slots; bf16, zero weights; ``INFERNOS_STT_MAX_NEW`` 24, as the flagship
+    runs it) on the ladder ``LT_RAMP_LEVELS``.  Checks, not SLAs: the child
+    exits 0; the first level answers every call and measures every turn; a
+    JSON line after each level; the calls' kernel launches (kernel 1 = 32 x
+    encodes, kernel 2 bf16 = steps).  Prints ``lt_calls_per_chip``, each
+    level's turn p50/p95 and wall time, the startup and each level's
+    engine-stage snapshot.  Returns the calls' launches (attention, bf16
+    step)."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    torch.cuda.empty_cache()
+    r = run_bench("lt_ramp", "infernos_tpu_torch.bench.ltbench",
+                  ["--ramp", "--full", "--turns", "2", "--levels", LT_RAMP_LEVELS],
+                  timeout=600, env_extra=LT_RAMP_ENV)
+    ramp = [ln for ln in r.lines if ln.get("metric") == "lt_calls_per_chip"]
+    res = ramp[-1] if ramp else {}
+    levels = res.get("detail", {}).get("levels", [])
+    snapshots = [ln for ln in r.err.splitlines() if " engine metrics: " in ln]
+    calls = bench_launches(r, "lt_ramp") if r.rc == 0 else None
+    emit("lt_ramp", card=card_info(), seconds=r.seconds, exit_code=r.rc,
+         lt_calls_per_chip=res.get("value"), unit=res.get("unit"),
+         startup_s=res.get("detail", {}).get("startup_s"), levels=levels,
+         engine_metrics=snapshots, json_lines=len(ramp), launches=calls)
+    check(r.rc == 0, f"lt_ramp: ltbench exited {r.rc}")
+    check(levels and levels[0]["n_calls"] == 1 and levels[0]["answered"] == 1
+          and levels[0]["turns_measured"] == 2 and levels[0]["failures"] == 0,
+          f"lt_ramp: the first level did not answer its call and measure both turns: {levels[:1]}")
+    # one line after each level, one before each retry, and the result
+    check(len(ramp) >= len(levels) + 1,
+          f"lt_ramp: {len(ramp)} JSON lines for {len(levels)} levels")
+    check(len(snapshots) == len(levels),
+          f"lt_ramp: {len(snapshots)} engine snapshots for {len(levels)} levels")
+    check(r.work["done"]["encoder_layers"] == [32],
+          f"lt_ramp: encoder layers {r.work['done']['encoder_layers']}, want large-v3's 32")
+    check(calls["encodes"] >= 2, f"lt_ramp: {calls['encodes']} encodes in the levels")
+    return calls["attention"], calls["bf16_step"]
+
+
+def phase_loopback(torch):
+    """Phase ``loopback``: ``python -m infernos_tpu_torch.bench.loopback
+    --speakers 4 --prompts 2``: the tiny-real TTS speaks each prompt in each
+    voice (bf16), the tiny-real STT transcribes it.  Checks: the mean
+    similarity reaches ``LOOPBACK_BAR`` (the reference package's mean on
+    the same cells on the CPU, less 0.1), the kernel launches.  Prints the
+    mean, its distribution and the cells' transcripts.  Returns the
+    launches (attention, bf16 step)."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("loopback", "infernos_tpu_torch.bench.loopback",
+                  ["--speakers", "4", "--prompts", "2"], timeout=300)
+    check(r.rc == 0 and r.lines, f"loopback: the bench exited {r.rc}")
+    res = r.lines[-1]
+    calls = bench_launches(r, "loopback")
+    emit("loopback", card=card_info(), seconds=r.seconds, similarity=res["value"],
+         bar=LOOPBACK_BAR, detail=res["detail"], launches=calls)
+    check(res["detail"]["voices_scored"] == 4 and res["detail"]["prompts_per_voice"] == 2,
+          f"loopback: scored {res['detail']}")
+    check(res["value"] >= LOOPBACK_BAR,
+          f"loopback: mean similarity {res['value']} under the bar {LOOPBACK_BAR:.4f}")
+    return calls["attention"], calls["bf16_step"]
+
+
 # -- last phase: what the card runs for one attention call and one encode -----
 
 def device_launches(torch, fn) -> int:
@@ -2865,9 +3146,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the engine runs; kernel tables go to DIR")
-    ap.add_argument("--only", choices=["attention", "kernels"],
+    ap.add_argument("--only", choices=["attention", "kernels", "benches"],
                     help="stop after the attention kernel's phase, or after "
-                         "all kernel phases (prints no result line)")
+                         "all kernel phases, or run the bench phases alone "
+                         "after the build (prints no result line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2903,6 +3185,12 @@ def main(argv=None) -> int:
     check(step_sass is None or step_sass["HMMA"] > 0,
           "the decoder-step library holds no tensor-core product (HMMA)")
 
+    if args.only == "benches":
+        phase_paced_tts(torch)
+        phase_lt_bench_tiny(torch)
+        phase_lt_ramp(torch)
+        phase_loopback(torch)
+        return 0
     kernels = [phase_attention(torch, attn)]
     if args.only == "attention":
         phase_device_launches(torch, attn)
@@ -2929,17 +3217,25 @@ def main(argv=None) -> int:
     phase_llm_tiny(torch)
     aia_attn, aia_bf16 = phase_aia_call(torch, attn, ts)
     daia_attn, daia_bf16 = phase_daemon_aia(torch)
+    paced_bf16 = phase_paced_tts(torch)
+    ltt_attn, ltt_bf16 = phase_lt_bench_tiny(torch)
+    ramp_attn, ramp_bf16 = phase_lt_ramp(torch)
+    loop_attn, loop_bf16 = phase_loopback(torch)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
-    # (the daemons' calls in their own processes, apart from their warm-ups)
+    # (the daemons' calls and the LT benches' levels in their own
+    # processes, apart from their warm-ups; the paced TTS and loopback
+    # benches' whole runs in theirs)
     by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
                "sip_call": sip_attn, "daemon": dmn_attn, "aia_call": aia_attn,
-               "daemon_aia": daia_attn}
+               "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
+               "loopback": loop_attn}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
                "sip_call": sip_bf16, "daemon": dmn_bf16, "aia_call": aia_bf16,
-               "daemon_aia": daia_bf16}
+               "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,
+               "lt_ramp": ramp_bf16, "loopback": loop_bf16}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     kernels[2]["launches"] = turn_int8

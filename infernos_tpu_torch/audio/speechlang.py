@@ -1,11 +1,16 @@
-"""The renderer of the synthetic spoken language the tiny-real checkpoints
-were trained on: text in, 16 kHz formant speech out.
+"""The synthetic spoken language the tiny-real checkpoints were trained
+on: text in, 16 kHz formant speech out, and its corpus.
 
-A copy of the renderer half of ``tools/speechlang.py`` (``Speaker``,
-``letter_formants``, ``render_letter``, ``render_text``), kept here so the
-port can make a far end's speech without importing the reference package
-(the tool's corpus half reads the reference's lexicon).  The same ``rng``
-gives the same samples as the tool.
+A copy of ``tools/speechlang.py`` (the renderer ``Speaker``,
+``letter_formants``, ``render_letter``, ``render_text``; the corpus
+``EN_WORDS``, ``PT_WORDS``, ``WORDS``, ``make_utterance``,
+``transcript_corpus``, ``checkpoint_words``) and of the attendant intents of
+``tools/train_tiny_llm.py`` (``DIGITS``, ``DEPTS``, ``intent_utterance``),
+kept here so the port makes a far end's speech and a bench's prompts
+without the reference's tools or package: the Portuguese words come from
+the port's own lexicon (``t2t/lexicon.py``) and the checkpoints' corpora
+are read by path (``models/npz_io.data_path``).  The same ``rng`` gives the
+same samples and words as the tools.
 
 Each letter renders as a vowel-like formant gesture (harmonic glottal
 source filtered by a letter-specific (F1, F2) resonator pair), words are
@@ -16,6 +21,8 @@ utterance.
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -128,3 +135,104 @@ def render_text(rng: np.random.Generator, text: str,
     audio = audio + noise * sp * 10 ** (-snr_db / 20)
     peak = np.abs(audio).max() + 1e-9
     return (0.9 * audio / peak).astype(np.float32)
+
+
+# -- corpus -------------------------------------------------------------------
+
+EN_WORDS = (
+    "zero one two three four five six seven eight nine "
+    "call the to my for please yes no hello thanks goodbye "
+    "transfer billing sales support agent line hold wait back "
+    "account number order status open close check pay card "
+    "help now today monday friday morning evening new old "
+    "can you me speak with from name is this that what when "
+    "where need want have will get department service team "
+    "manager office phone time date confirm cancel repeat"
+).split()
+
+
+def _pt_words():
+    """The Portuguese side of the lexicon for ``EN_WORDS`` (what the
+    LiveTranslator's pt leg can say), and its words not in ``EN_WORDS``."""
+    from ..t2t.lexicon import EN_PT
+
+    full = [EN_PT[w] for w in EN_WORDS if w in EN_PT]
+    return full, [w for w in full if w not in EN_WORDS]
+
+
+PT_WORDS, _PT_NEW = _pt_words()
+WORDS = EN_WORDS + _PT_NEW
+
+_LANG_VOCABS = {None: None, "en": EN_WORDS, "pt": PT_WORDS}
+
+
+def make_utterance(rng: np.random.Generator, n_words: Tuple[int, int] = (2, 6),
+                   spk: Optional[Speaker] = None,
+                   words: Optional[List[str]] = None,
+                   lang: Optional[str] = None) -> Tuple[np.ndarray, str]:
+    """Random utterance -> (16 kHz audio, transcript).  ``lang`` picks a
+    language-pure vocabulary ('en'/'pt'; None = the mixed corpus)."""
+    vocab = words if words is not None else _LANG_VOCABS[lang]
+    if vocab is None:
+        vocab = WORDS
+    k = int(rng.integers(n_words[0], n_words[1] + 1))
+    picked = [vocab[int(rng.integers(0, len(vocab)))] for _ in range(k)]
+    text = " ".join(picked)
+    return render_text(rng, text, spk), text
+
+
+def transcript_corpus(n: int, seed: int = 0,
+                      words: Optional[List[str]] = None) -> List[str]:
+    """``n`` transcripts of 2-6 words drawn from ``words`` (default
+    ``WORDS``) by a generator seeded with ``seed``."""
+    vocab = WORDS if words is None else words
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(2, 7))
+        out.append(" ".join(vocab[int(rng.integers(0, len(vocab)))]
+                            for _ in range(k)))
+    return out
+
+
+def checkpoint_words(name: str = "tiny_stt") -> List[str]:
+    """The vocabulary a vendored tiny-real checkpoint was trained on: the
+    trainers write ``corpus.json`` beside the weights; without one the
+    checkpoint was trained on ``EN_WORDS``."""
+    from ..models.npz_io import data_path
+
+    path = os.path.join(data_path(name), "corpus.json")
+    try:
+        with open(path) as f:
+            return list(json.load(f)["words"])
+    except (OSError, KeyError, ValueError):
+        return list(EN_WORDS)
+
+
+# -- attendant intents (tools/train_tiny_llm.py) -----------------------------
+
+DIGITS = "zero one two three four five six seven eight nine".split()
+DEPTS = ["billing", "sales", "support"]
+
+
+def intent_utterance(rng: np.random.Generator) -> str:
+    """A caller's line: half carry a recognizable intent of the attendant
+    policy the tiny LLM was trained on (``_intent_utterance`` there)."""
+    kind = int(rng.integers(0, 8))
+    if kind == 0:
+        return f"transfer me to {DEPTS[int(rng.integers(0, 3))]} please"
+    if kind == 1:
+        n = int(rng.integers(2, 6))
+        ds = " ".join(DIGITS[int(rng.integers(0, 10))] for _ in range(n))
+        return f"my account number is {ds}"
+    if kind == 2:
+        return "check my account number please"
+    if kind == 3:
+        return "thanks goodbye"
+    if kind == 4:
+        return "can me speak with the manager"
+    if kind == 5:
+        return "cancel my order please"
+    if kind == 6:
+        return "what is my order status"
+    return "hello good morning"

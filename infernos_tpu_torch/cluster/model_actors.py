@@ -30,6 +30,9 @@ Port of ``infernos_tpu/cluster/model_actors.py``.  What differs, and why:
   in through ``params=`` (``models/convert.py`` ``from_jax_params``).  The
   tiny dims have head dim 12, which the encoder attention kernel does not
   take: on the card a tiny random start fails with the kernel's error.
+- ``INFERNOS_MODEL_MODE=tiny-real`` without the trained checkpoint raises
+  in every actor; the reference warns and serves random weights, which
+  would let a tiny-real run quietly measure other models.
 - The full LLM start (Qwen2.5-7B) allocates its zeros directly in the
   int8 layout (``models/quant.py``; shapes from fake tensors, scales fp32
   as the port keeps them), never as a dense copy; its embedding and
@@ -76,7 +79,7 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _zeros_init(init_fn, device: torch.device, dtype: torch.dtype):
+def zeros_init(init_fn, device: torch.device, dtype: torch.dtype):
     """Full-dims engines without a checkpoint initialize to zeros: weight
     VALUES are irrelevant until real checkpoints are ported (PERF.md).
     ``init_fn(generator, device, dtype)`` runs under fake tensors, which
@@ -103,7 +106,7 @@ def qwen_int8_init(cfg: qwen.QwenConfig, device: torch.device,
     varied token stream through the residual path."""
     from ..models import quant
 
-    params = _zeros_init(lambda g, d, t: quant.quantize_params(
+    params = zeros_init(lambda g, d, t: quant.quantize_params(
         qwen.init_params(cfg, g, d, t)), device, dtype)
     for node in params["layers"].values():
         if "w_q" in node:
@@ -137,8 +140,9 @@ class TTSActor(Actor):
 
             if tiny_real.have_tiny_tts():
                 return self._start_tiny_real(lang, dev)
-            log.warning("INFERNOS_MODEL_MODE=tiny-real but no trained tiny "
-                        "TTS checkpoint; falling back")
+            raise RuntimeError(
+                "INFERNOS_MODEL_MODE=tiny-real but no trained tiny TTS "
+                f"checkpoint in {tiny_real.data_path('tiny_tts')}")
         cfg = presets.SPEECHT5_TINY if self.tiny else presets.SPEECHT5_FULL
         voc = presets.HIFIGAN_TINY if self.tiny else presets.HIFIGAN_FULL
         dtype = serving_dtype(dev)
@@ -148,7 +152,7 @@ class TTSActor(Actor):
             params = st5.init_params(
                 cfg, torch.Generator().manual_seed(self.seed), dev, dtype)
         else:
-            params = _zeros_init(
+            params = zeros_init(
                 lambda g, d, t: st5.init_params(cfg, g, d, t), dev, dtype)
         if self._voc_params is not None:
             voc_params = cast_floating(self._voc_params, dtype)
@@ -156,7 +160,7 @@ class TTSActor(Actor):
             voc_params = hfg.init_params(
                 voc, torch.Generator().manual_seed(self.seed + 1), dev, dtype)
         else:
-            voc_params = _zeros_init(
+            voc_params = zeros_init(
                 lambda g, d, t: hfg.init_params(voc, g, d, t), dev, dtype)
         ecfg = self.ecfg or TTSEngineConfig(
             # INFERNOS_TTS_SLOTS: call-ramp benches widen slots; 8 is the
@@ -267,8 +271,9 @@ class STTActor(Actor):
 
             if tiny_real.have_tiny_stt():
                 return self._start_tiny_real(dev)
-            log.warning("INFERNOS_MODEL_MODE=tiny-real but no trained tiny "
-                        "STT checkpoint; falling back")
+            raise RuntimeError(
+                "INFERNOS_MODEL_MODE=tiny-real but no trained tiny STT "
+                f"checkpoint in {tiny_real.data_path('tiny_stt')}")
         cfg = presets.WHISPER_TINY_TEST if self.tiny else presets.WHISPER_LARGE_V3
         dtype = serving_dtype(dev)
         # sot_prev: the reference leaves large-v3's 50362 in the tiny config,
@@ -294,7 +299,7 @@ class STTActor(Actor):
             params = wsp.init_params(
                 cfg, torch.Generator().manual_seed(self.seed), dev, ecfg.dtype)
         else:
-            params = _zeros_init(
+            params = zeros_init(
                 lambda g, d, t: wsp.init_params(cfg, g, d, t), dev, ecfg.dtype)
         if self.tiny or self.ecfg is not None:
             self.engine = STTEngine(params, cfg, ecfg, device=dev)
@@ -397,8 +402,9 @@ class LLMActor(Actor):
 
             if tiny_real.have_tiny_llm():
                 return self._start_tiny_real(dev)
-            log.warning("INFERNOS_MODEL_MODE=tiny-real but no trained tiny "
-                        "LLM checkpoint; falling back")
+            raise RuntimeError(
+                "INFERNOS_MODEL_MODE=tiny-real but no trained tiny LLM "
+                f"checkpoint in {tiny_real.data_path('tiny_llm')}")
         # one card serves the 7B at int8 (about 8.7 GB of weights); the
         # reference's 14B target (Cluster/InfernLLMWorker.py:64) is placed
         # over several cards (multi-device work)

@@ -22,7 +22,12 @@
   and with an AI attendant profile, and ``build_cluster`` demands a card
   unless the CPU is asked;
 - the LLM engine, the ``LLMActor`` start and the tiny LLM loader demand a
-  card unless the CPU is asked.
+  card unless the CPU is asked;
+- the benches (``bench.ttsmain``, ``bench.ltbench``, ``bench.loopback`` and
+  the flagship ``python -m infernos_tpu_torch.bench``) load no ``jax``,
+  reference or ``tools`` module, make their inputs without them, demand a
+  card unless ``INFERNOS_DEVICE=cpu`` asks for the CPU, and the LT bench
+  refuses the tiny random models on a card before it binds anything.
 """
 
 import ast
@@ -75,7 +80,8 @@ def test_every_submodule_imports_without_jax_or_reference():
               "cluster.model_actors", "config.config", "config.validator",
               "apps.live_translator.session", "apps.live_translator.actor",
               "models.presets", "utils.metrics_export", "bench.phone", "main",
-              "__main__"):
+              "__main__", "audio.synth_speech", "bench.paced_calls", "bench.ttsmain",
+              "bench.ltbench", "bench.loopback", "bench.__main__"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -469,3 +475,121 @@ def test_build_cluster_demands_a_card_unless_cpu_is_asked(monkeypatch, tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmain.build_cluster(InfernConfig(str(cfg)), tiny=True)
     assert actors.lookup("rtp") is None and actors.lookup("sip") is None
+
+
+TOOL_MODULES = ("tools", "speechlang", "synth_speech", "train_tiny_llm")
+
+
+def test_benches_load_no_jax_reference_or_tools():
+    """Importing the benches and making what they speak and score (the LT
+    bench's utterances and frames, loopback's prompts) in a fresh
+    interpreter loads no ``jax``, reference or ``tools`` module."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "import infernos_tpu_torch.bench.__main__, infernos_tpu_torch.bench.ttsmain\n"
+        "from infernos_tpu_torch.audio.codecs import G711Codec\n"
+        "from infernos_tpu_torch.bench import loopback, ltbench, paced_calls\n"
+        "rng = np.random.default_rng(0)\n"
+        "assert ltbench._encode_frames(G711Codec(), ltbench._utterance(rng, 1.6))\n"
+        "assert ltbench.speechlang_utterance(rng).size > 0\n"
+        "assert len(loopback.loopback_prompts(2)) == 2\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" ('jax', 'jaxlib', 'infernos_tpu') + {TOOL_MODULES!r})\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "bench").glob("*.py")) + [
+    PKG / "audio" / "speechlang.py", PKG / "audio" / "synth_speech.py"],
+    ids=lambda p: p.name)
+def test_benches_reach_no_tools_and_fall_back_to_nothing(path):
+    """No bench source puts ``tools/`` on the path or imports from it, and
+    none keeps the reference's tone fallback or its figures from other
+    hardware."""
+    src = path.read_text()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in TOOL_MODULES for n in names), (path, names)
+    assert "sys.path" not in src
+    for word in ("last_recorded_hardware", "vs_baseline", "v5e", "/ 50.0"):
+        assert word not in src, (path, word)
+
+
+def _bench_mains():
+    from infernos_tpu_torch.bench import loopback, ltbench, ttsmain
+
+    return {"ttsmain": (ttsmain, "build_engine", lambda: ttsmain.main()),
+            "ltbench": (ltbench, "MultiFarEnd", lambda: ltbench.main(["--full", "--ramp"])),
+            "loopback": (loopback, "tiny_real_engines", lambda: loopback.main([]))}
+
+
+class _PastTheDevice(Exception):
+    """Raised by a stub that a bench's main reaches once it has a device."""
+
+
+@pytest.mark.parametrize("what", ["ttsmain", "ltbench", "loopback"])
+def test_bench_mains_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
+    """Without a card each bench's ``main`` raises before it builds an
+    engine or binds a socket; with ``INFERNOS_DEVICE=cpu`` it goes on, on
+    the CPU (a stub in place of its first step stops it there)."""
+    module, first_step, run = _bench_mains()[what]
+    got = []
+
+    def stub(*a, **kw):
+        got.append([x for x in list(a) + list(kw.values()) if isinstance(x, torch.device)])
+        raise _PastTheDevice
+
+    monkeypatch.setattr(module, first_step, stub)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("INFERNOS_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    assert got == []
+    monkeypatch.setenv("INFERNOS_DEVICE", "cpu")
+    with pytest.raises(_PastTheDevice):
+        run()
+    assert got in ([[torch.device("cpu")]], [[]])  # the LT bench's far end takes a port
+
+
+def test_ltbench_refuses_the_tiny_random_models_on_a_card(monkeypatch):
+    """On a card the LT bench serves ``--full`` or ``--tiny-real``: the
+    bare tiny mode exits with a usage error before the far end binds or an
+    actor starts."""
+    from infernos_tpu_torch.bench import ltbench
+    from infernos_tpu_torch.cluster import actors
+
+    def far_end(*a, **kw):
+        raise _PastTheDevice
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("INFERNOS_DEVICE", raising=False)
+    # --tiny-real sets it for the actors; the test's undo removes it again
+    monkeypatch.setenv("INFERNOS_MODEL_MODE", "")
+    monkeypatch.setattr(ltbench, "MultiFarEnd", far_end)
+    for argv in ([], ["--ramp"], ["--calls", "2", "--turns", "1"]):
+        with pytest.raises(SystemExit) as e:
+            ltbench.main(argv)
+        assert e.value.code == 2
+    assert actors.lookup("rtp") is None and actors.lookup("sip") is None
+    for argv in (["--full"], ["--tiny-real"], ["--ramp", "--full"]):
+        with pytest.raises(_PastTheDevice):
+            ltbench.main(argv)
+
+
+def test_flagship_demands_a_card_unless_cpu_is_asked():
+    """``python -m infernos_tpu_torch.bench`` without a card exits non-zero
+    before it starts a bench or prints a result line."""
+    env = {k: v for k, v in __import__("os").environ.items() if k != "INFERNOS_DEVICE"}
+    proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch.bench"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "{" not in proc.stdout

@@ -22,6 +22,8 @@
   the session API.
 - ``device`` reaches the engines; without a card and without
   ``device="cpu"`` an actor's start raises.
+- ``INFERNOS_MODEL_MODE=tiny-real`` without the trained checkpoint raises
+  in each actor's start.
 """
 
 import dataclasses
@@ -189,7 +191,7 @@ def test_zeros_init_allocates_the_init_tree_in_the_serving_dtype(what):
     cfg, mod = {"whisper": (presets.WHISPER_TINY_TEST, wsp),
                 "speecht5": (presets.SPEECHT5_TINY, st5)}[what]
     ref = mod.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    got = ma._zeros_init(lambda g, d, t: mod.init_params(cfg, g, d, t),
+    got = ma.zeros_init(lambda g, d, t: mod.init_params(cfg, g, d, t),
                          torch.device("cpu"), torch.bfloat16)
     flat_ref, flat_got = [], []
     ma._tree_map(flat_ref.append, ref)
@@ -304,3 +306,17 @@ def test_actor_start_demands_a_card_unless_cpu_is_asked(monkeypatch, cls):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         actor.start()
     assert actor.engine is None
+
+
+@pytest.mark.parametrize("cls,what", [("STTActor", "STT"), ("TTSActor", "TTS"),
+                                      ("LLMActor", "LLM")])
+def test_tiny_real_without_its_checkpoint_raises(monkeypatch, tmp_path, cls, what):
+    """``INFERNOS_MODEL_MODE=tiny-real`` with the data path pointed at an
+    empty directory: the start raises and names the directory; it does not
+    serve random weights in the checkpoint's place."""
+    monkeypatch.setenv("INFERNOS_MODEL_MODE", "tiny-real")
+    monkeypatch.setenv(f"INFERNOS_TINY_DATA_TINY_{what}", str(tmp_path))
+    actor = getattr(ma, cls)(tiny=True, device="cpu")
+    with pytest.raises(RuntimeError, match=f"no trained tiny {what} checkpoint in {tmp_path}"):
+        actor.start()
+    assert actor.engine is None and actor.driver is None
