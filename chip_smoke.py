@@ -85,16 +85,42 @@ Phases, each printing one JSON line:
 18. loopback -- ``python -m infernos_tpu_torch.bench.loopback --speakers 4
                --prompts 2``: tiny-real TTS into tiny-real STT, mean
                similarity at least the reference's on the CPU less 0.1;
-19. launches -- the kernels and copies the card runs for one
+19. stt_ladder -- the STT engine at whisper-large-v3 width with the
+               quality ladder on (temperatures 0.5 and 1.0, then a beam of
+               5): every request of random weights fails the gate, is
+               decoded again at each temperature and once by beam search
+               and calls back once; then ``beam_decode`` in fp32: W 1 gives
+               a greedy loop's ids, W 5 a sum logprob at least W 1's;
+20. sttbench -- ``python -m infernos_tpu_torch.bench.sttbench --full``
+               (16 slots, 24 new tokens, 16 G.711 utterances): all come
+               back; the realtime factor and latency percentiles;
+21. ttsbench -- ``python -m infernos_tpu_torch.bench.ttsbench 16 --full``
+               (8 slots, 128 frames): 16 sessions with frames; first frame
+               and real-time ratio;
+22. ttsprobe -- ``python -m infernos_tpu_torch.bench.ttsprobe --slots 24
+               --ticks 60 --frames 96``: the kernel path's tick time;
+23. llmbench -- ``python -m infernos_tpu_torch.bench.llmbench --dims 7b``
+               with K 8 and with ``--spec``: every request finishes;
+               tokens/s and generation latency;
+24. aia_bench -- ``python -m infernos_tpu_torch.bench.aiabench --tiny-real
+               --calls 2 --turns 2``: 2 answered, every turn replied to
+               but those the tiny LLM answers with ``<nothingtosay>``;
+25. echo    -- ``python -m infernos_tpu_torch.bench.echo --tiny-real
+               --utterances 2``: an echo per utterance over RTP, no SIP;
+26. ramp_profile -- ``ltbench --ramp --full --turns 2 --levels 2`` with
+               ``INFERNOS_PYSAMPLER``: the host profile of a two-call
+               level (on-CPU and waiting leaves, threads);
+27. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Weights are random, from fixed seeds, except in ``rtp_call``,
-``sip_call``, ``llm_tiny``, ``aia_call``, ``lt_bench_tiny`` and
-``loopback``, which serve the vendored trained tiny models, and
-``daemon``, ``daemon_aia``, ``paced_tts`` and ``lt_ramp``, which start
+``sip_call``, ``llm_tiny``, ``aia_call``, ``lt_bench_tiny``,
+``loopback``, ``aia_bench`` and ``echo``, which serve the vendored trained
+tiny models, and ``daemon``, ``daemon_aia``, ``paced_tts``, ``lt_ramp``,
+``ttsprobe``, ``llmbench`` and ``ramp_profile``, which start
 with zero weights as the actors do without a checkpoint (the LLM's
 embedding and readout random, as its actor starts them).
 Every check that fails raises, so the script exits non-zero and prints no
@@ -107,8 +133,8 @@ bench phases hold checks, not SLAs: their latencies and rates are printed
 as measurements.
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs); ``--only benches``
-runs the four bench phases alone after the build.  They print no result
-line.
+runs the bench phases and ``stt_ladder`` alone after the build, and
+``--phases a,b`` the named ones of them.  They print no result line.
 """
 
 from __future__ import annotations
@@ -2827,11 +2853,12 @@ def phase_daemon_aia(torch):
 # runs ``python -m <module> <args>`` as the bench's own main; counts the
 # kernels' launches from 0 and keeps every STT and TTS engine made, and
 # writes the launches with the engines' encodes and steps to
-# ``$CHIP_SMOKE_WORK.warm`` when ``build_cluster`` returns (the actors'
-# warm-ups done) and to ``$CHIP_SMOKE_WORK.done`` at the end, also when the
-# bench ends its process with ``os._exit``
+# ``$CHIP_SMOKE_WORK.warm`` after every engine's ``warmup`` and when
+# ``build_cluster`` returns (so it holds the work up to the last warm-up,
+# the path's start) and to ``$CHIP_SMOKE_WORK.done`` at the end, also when
+# the bench ends its process with ``os._exit``
 BENCH_PRELUDE = """
-import importlib, json, os, sys
+import importlib, json, os, sys, threading
 import infernos_tpu_torch.main as entry
 from infernos_tpu_torch.ops import attention as attn, tts_step as ts
 from infernos_tpu_torch.serving import stt_engine, tts_engine
@@ -2848,7 +2875,7 @@ def keep(cls, kind):
     cls.__init__ = wrapped
 
 
-def report(tag):
+def report(tag):  # written whole, then renamed: actors warm up in threads
     work = {"attention": attn.fused_attention.launches,
             "bf16_step": ts.fused_decode_step.launches,
             "int8_step": ts.fused_decode_step.launches_int8,
@@ -2857,14 +2884,25 @@ def report(tag):
             "encoder_layer_runs": sum(e.cfg.encoder_layers * len(e.encode_ms) for e in made["stt"]),
             "steps": sum(n // e.cfg.reduction_factor for e in made["tts"]
                          for n in list(e.tick_frames))}
-    with open(os.environ["CHIP_SMOKE_WORK"] + "." + tag, "w") as f:
+    path = os.environ["CHIP_SMOKE_WORK"] + "." + tag
+    with open(f"{path}.{threading.get_ident()}", "w") as f:
         json.dump(work, f)
+    os.replace(f.name, path)
 
 
 def build_cluster(*a, build=entry.build_cluster, **kw):
     handles = build(*a, **kw)
     report("warm")
     return handles
+
+
+def warm_then_report(cls):
+    warmup = cls.warmup
+
+    def wrapped(self):
+        warmup(self)
+        report("warm")
+    cls.warmup = wrapped
 
 
 def exit_now(rc, real=os._exit):
@@ -2874,6 +2912,8 @@ def exit_now(rc, real=os._exit):
 
 keep(stt_engine.STTEngine, "stt")
 keep(tts_engine.TTSEngine, "tts")
+warm_then_report(stt_engine.STTEngine)
+warm_then_report(tts_engine.TTSEngine)
 entry.build_cluster = build_cluster
 os._exit = exit_now
 attn.fused_attention.launches = 0
@@ -2931,18 +2971,21 @@ def run_bench(name: str, module: str, args, timeout: float, env_extra=None) -> d
     return r
 
 
-def bench_launches(r, name: str) -> dict:
-    """The kernels a bench run launched on its path (after its cluster's
-    warm-ups when it built one), held to its engines' work: kernel 1 once
-    per encoder layer per encode, kernel 2 (bf16) once per TTS step, int8
-    never."""
+def bench_launches(r, name: str, stt: bool = True, tts: bool = True) -> dict:
+    """The kernels a bench run launched on its path (after its engines'
+    last warm-up or its cluster's start; its whole run when it warmed up
+    nothing, as ``ttsprobe``, whose first tick is its own), held to
+    its engines' work: kernel 1 once per encoder layer per encode, kernel 2
+    (bf16) once per TTS step, int8 never.  ``stt``/``tts``: whether the
+    bench runs that engine (its kernel must then launch, else never)."""
     check("done" in r.work, f"{name}: the bench reported no kernel launches")
     done, warm = r.work["done"], r.work.get("warm", dict.fromkeys(WORK_KEYS, 0))
     calls = {k: done[k] - warm[k] for k in WORK_KEYS}
-    check(calls["attention"] == calls["encoder_layer_runs"],
+    check(calls["attention"] == calls["encoder_layer_runs"]
+          and (calls["encodes"] > 0) == stt,
           f"{name}: attention kernel launched {calls['attention']} times for "
           f"{calls['encodes']} encodes of {done['encoder_layers']} layers")
-    check(calls["bf16_step"] == calls["steps"] and calls["steps"] > 0,
+    check(calls["bf16_step"] == calls["steps"] and (calls["steps"] > 0) == tts,
           f"{name}: bf16 step kernel launched {calls['bf16_step']} times for "
           f"{calls['steps']} steps")
     check(done["int8_step"] == 0, f"{name}: the int8 step kernel launched {done['int8_step']} times")
@@ -2968,7 +3011,7 @@ def phase_paced_tts(torch):
     check(r.lines and r.lines[-1].get("metric") == "tts_paced_concurrent_calls_per_chip",
           f"paced_tts: no result line: {r.out[-2000:]}")
     res = r.lines[-1]
-    calls = bench_launches(r, "paced_tts")
+    calls = bench_launches(r, "paced_tts", stt=False)
     d = res["detail"]
     emit("paced_tts", card=card_info(), seconds=r.seconds, paced_calls=res["value"],
          unit=res["unit"], probe_streams=d["throughput_streams_probe"],
@@ -3077,6 +3120,388 @@ def phase_loopback(torch):
     return calls["attention"], calls["bf16_step"]
 
 
+# -- phases 19-26: the quality ladder, the engine and attendant benches, the
+# echo loop and a profiled ramp level ------------------------------------------
+
+LADDER_REQUESTS = (2.0, 3.5, 5.25, 8.0)  # seconds of audio per request
+LADDER_TEMPS = (0.5, 1.0)
+LADDER_BEAM = 5
+LADDER_NEW = 24  # random weights never emit EOS
+HF_INIT_STD = 0.02  # HF WhisperConfig.init_std
+DECODER_KEYS = ("tok_embed", "dec_pos", "dec_layers", "dec_ln")
+
+
+def hf_init_decoder(torch, params, generator):
+    """A decoder tree shaped as ``params``' with HF Whisper's init: every
+    weight and embedding N(0, 0.02), biases 0, LayerNorms 1 and 0.  The
+    port's ``init_params`` (torch.nn defaults) gives the embedding N(0, 1),
+    which outweighs every layer's output: that decoder repeats its input
+    token with probability 1, so sampling, beams and greedy all agree."""
+    def leaf(k, t):
+        if k == "g":
+            return torch.ones_like(t)
+        if k == "b":
+            return torch.zeros_like(t)
+        return torch.empty_like(t).normal_(0.0, HF_INIT_STD, generator=generator)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v) for k, v in tree.items()}
+    return walk({k: params[k] for k in DECODER_KEYS})
+
+
+def phase_stt_ladder(torch, attn, stt_params=None):
+    """Phase ``stt_ladder``: the STT engine at whisper-large-v3 width
+    (seeded random bf16 weights, the decoder at HF Whisper's init, 8 slots,
+    24 new tokens) with the quality ladder on: temperatures 0.5 and 1.0,
+    then a beam of 5.  Random weights fail the gate on every result, so
+    each request is decoded greedily, then at each temperature, then once
+    by beam search.  Checks: each callback fires once, with the beam's
+    result (temperature 0; a failed beam re-decode keeps 1.0); every
+    sampled rung's tokens differ from the greedy decode's;
+    ``stt.fallback_retries`` grows by 2 per request and
+    ``stt.beam_redecodes`` by 1; kernel 1 launches 32 times per encode (the
+    joins' and the beam re-decodes').  Then, in fp32 (TF32 off) on one
+    encoded utterance: ``beam_decode`` with W 1 gives the ids of a greedy
+    loop over ``decode_step`` on a fresh cache, that greedy decode holds
+    more than one distinct token, each beam's sum logprob equals its
+    tokens' rescored by a teacher-forced loop (within 1e-4 relative: the
+    parent gathers of the self K/V cache are right), and W 5's sum logprob
+    is above W 1's.
+    Returns the kernel-1 launches of the engine's run."""
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.models.convert import cast_floating
+    from infernos_tpu_torch.serving import stt_engine as stt
+    from infernos_tpu_torch.utils.metrics import metrics
+
+    cfg = wsp.WhisperConfig()
+    if stt_params is None:  # the stt phase's weights when it did not run
+        g = torch.Generator(device="cuda").manual_seed(5)
+        stt_params = wsp.init_params(cfg, g, "cuda", torch.bfloat16)
+    dec = hf_init_decoder(torch, stt_params, torch.Generator(device="cuda").manual_seed(6))
+    ecfg = stt.STTEngineConfig(dtype=torch.bfloat16, batch_slots=8,
+                               max_new_tokens=LADDER_NEW,
+                               fallback_temperatures=LADDER_TEMPS,
+                               fallback_beam_size=LADDER_BEAM)
+    eng = stt.STTEngine({**stt_params, **dec}, cfg, ecfg)
+    rng = np.random.default_rng(11)
+    audios = [synth_audio(rng, s) for s in LADDER_REQUESTS]
+    results = {i: [] for i in range(len(audios))}
+    reqs = [stt.STTRequest(audio=a, text_cb=results[i].append)
+            for i, a in enumerate(audios)]
+    rungs = {id(r): [] for r in reqs}  # (temperature, tokens) of each decode
+    needs_fallback = eng._needs_fallback
+
+    def gate(req, res):
+        rungs[id(req)].append((res.temperature, list(res.tokens)))
+        return needs_fallback(req, res)
+    eng._needs_fallback = gate
+    before = {k: metrics.counters.get(k, 0) for k in ("stt.fallback_retries",
+                                                       "stt.beam_redecodes")}
+    attn.fused_attention.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.step() and steps < 2000:
+        steps += 1
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = attn.fused_attention.launches  # read right after the main path
+    encodes = len(eng.encode_ms)
+    grew = {k: metrics.counters.get(k, 0) - v for k, v in before.items()}
+    n = len(audios)
+    check(all(len(v) == 1 for v in results.values()),
+          f"stt_ladder: callbacks per request {[len(v) for v in results.values()]}")
+    check(all(r.attempt == len(LADDER_TEMPS) and r.beam_done for r in reqs),
+          f"stt_ladder: attempts {[r.attempt for r in reqs]}, "
+          f"beam {[r.beam_done for r in reqs]}")
+    check(grew == {"stt.fallback_retries": 2 * n, "stt.beam_redecodes": n},
+          f"stt_ladder: counters grew {grew}, want {2 * n} retries and {n} beams")
+    check(encodes == 4 * n, f"stt_ladder: {encodes} encodes, want {4 * n}")
+    check(launches == cfg.encoder_layers * encodes,
+          f"stt_ladder: attention kernel launched {launches} times for {encodes} encodes")
+    res = [results[i][0] for i in range(n)]
+    for i, r in enumerate(res):
+        check(0 < len(r.tokens) <= LADDER_NEW and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"stt_ladder request {i}: tokens {r.tokens}")
+        check(math.isfinite(r.avg_logprob), f"stt_ladder request {i}: avg logprob")
+        check(r.temperature == 0.0, f"stt_ladder request {i}: delivered at temperature "
+              f"{r.temperature}, not the beam's result")
+        temps = [t for t, _ in rungs[id(reqs[i])]]
+        check(temps == [0.0, *LADDER_TEMPS], f"stt_ladder request {i}: rungs at {temps}")
+        greedy_tokens = rungs[id(reqs[i])][0][1]
+        check(all(tk != greedy_tokens for _, tk in rungs[id(reqs[i])][1:]),
+              f"stt_ladder request {i}: a sampled rung gave the greedy tokens "
+              f"{greedy_tokens}")
+
+    # beam_decode in fp32 against a greedy loop, on one encoded utterance
+    dec = cast_floating(dec, torch.float32)
+    enc = eng._encode(reqs[0]).float()
+    prompt, _ = eng._build_prompt(stt.STTRequest(audio=audios[0], text_cb=None))
+    P = len(prompt)
+
+    def decode(force=None):
+        """Greedy (``force`` None) or teacher-forced (``force``, then EOS)
+        decode after the prompt on a fresh cache: the tokens and their sum
+        logprob, EOS's included."""
+        cache = wsp.fill_cross_kv(dec, cfg, wsp.init_cache(
+            cfg, 1, P + LADDER_NEW, enc.shape[1], "cuda"), enc)
+        for i, tok in enumerate(prompt):
+            logits = wsp.decode_step(dec, cfg, torch.tensor([tok], device="cuda"), cache,
+                                     torch.tensor([i], device="cuda"))
+        out, total = [], 0.0
+        for t in range(LADDER_NEW):
+            if force is None:
+                nxt = int(torch.argmax(logits[0]))
+            else:
+                nxt = force[t] if t < len(force) else cfg.eos_token_id
+            total += float(torch.log_softmax(logits[0].float(), -1)[nxt])
+            if nxt == cfg.eos_token_id:
+                break
+            out.append(nxt)
+            logits = wsp.decode_step(dec, cfg, torch.tensor([nxt], device="cuda"), cache,
+                                     torch.tensor([P + t], device="cuda"))
+        return out, total
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        greedy, greedy_lp = decode()
+        greedy_s = time.perf_counter() - t0
+        beams = {}
+        for W in (1, LADDER_BEAM):
+            t0 = time.perf_counter()
+            tk, ng, lp = wsp.beam_decode(dec, cfg, enc, prompt, P, beam_size=W,
+                                         max_new=LADDER_NEW, eos_id=cfg.eos_token_id)
+            beams[W] = ([int(x) for x in tk[: int(ng)].tolist()], float(lp),
+                        time.perf_counter() - t0)
+        rescored = {W: decode(b[0])[1] for W, b in beams.items()}
+    emit("stt_ladder", model="whisper-large-v3", wall_s=wall_s, steps=steps,
+         requests=n, encodes=encodes, encode_ms=eng.encode_ms[:encodes],
+         attention_launches=launches, counters=grew,
+         latency_s=[r.inf_time for r in res], n_tokens=[len(r.tokens) for r in res],
+         avg_logprob=[r.avg_logprob for r in res],
+         rung_tokens=[[tk[:6] for _, tk in rungs[id(r)]] for r in reqs],
+         greedy_tokens=greedy, greedy_sum_logprob=greedy_lp,
+         beam_tokens={str(W): b[0] for W, b in beams.items()},
+         beam_sum_logprob={str(W): b[1] for W, b in beams.items()},
+         beam_rescored_sum_logprob={str(W): v for W, v in rescored.items()},
+         beam_s={str(W): b[2] for W, b in beams.items()}, greedy_loop_s=greedy_s)
+    check(beams[1][0] == greedy, f"stt_ladder: beam W 1 {beams[1][0]} != greedy {greedy}")
+    check(len(set(greedy)) > 1, f"stt_ladder: a degenerate decoder ({greedy})")
+    for W, (tk, lp, _) in beams.items():  # the beams' own scores are their tokens'
+        check(abs(lp - rescored[W]) <= 1e-4 * abs(rescored[W]),
+              f"stt_ladder: beam W {W} scored {lp}, its tokens rescore to {rescored[W]}")
+    check(beams[LADDER_BEAM][1] > beams[1][1],
+          f"stt_ladder: beam W {LADDER_BEAM} sum logprob {beams[LADDER_BEAM][1]} not above "
+          f"W 1's {beams[1][1]}")
+    return launches
+
+
+def phase_sttbench(torch):
+    """Phase ``sttbench``: ``python -m infernos_tpu_torch.bench.sttbench
+    --full --slots 16 --max-new 24 --n 16`` (whisper-large-v3, seeded random
+    bf16 weights, which never emit EOS, hence the cap).  Checks: 16
+    utterances come back, one encode each after the engine's warm-up;
+    kernel 1 launches 32 times per encode, kernel 2 never.  Prints the
+    realtime factor and the latency p50/p95.  Returns the kernel-1
+    launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("sttbench", "infernos_tpu_torch.bench.sttbench",
+                  ["--full", "--slots", "16", "--max-new", "24", "--n", "16"], timeout=300)
+    check(r.rc == 0 and r.lines, f"sttbench: the bench exited {r.rc}")
+    res = r.lines[-1]
+    calls = bench_launches(r, "sttbench", tts=False)
+    emit("sttbench", card=card_info(), seconds=r.seconds, result=res, launches=calls)
+    check(res["utterances"] == 16 and calls["encodes"] == 16,
+          f"sttbench: {res['utterances']} of 16 utterances, {calls['encodes']} encodes")
+    check(r.work["done"]["encoder_layers"] == [32],
+          f"sttbench: encoder layers {r.work['done']['encoder_layers']}")
+    return calls["attention"]
+
+
+def phase_ttsbench(torch):
+    """Phase ``ttsbench``: ``python -m infernos_tpu_torch.bench.ttsbench 16
+    --full --max-frames 128`` (SpeechT5 + HiFi-GAN at full width, seeded
+    random bf16 weights, 8 slots).  Checks: 16 reports, each with frames;
+    kernel 2 (bf16) launches once per step.  Prints first-frame p50/p95 and
+    the real-time ratio's mean and minimum.  Returns the bf16 launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("ttsbench", "infernos_tpu_torch.bench.ttsbench",
+                  ["16", "--full", "--max-frames", "128"], timeout=300)
+    check(r.rc == 0 and r.lines, f"ttsbench: the bench exited {r.rc}")
+    res = r.lines[-1]
+    calls = bench_launches(r, "ttsbench", stt=False)
+    emit("ttsbench", card=card_info(), seconds=r.seconds, result=res, launches=calls)
+    check(res["sessions"] == 16 and len(res["frames"]) == 16 and min(res["frames"]) > 0,
+          f"ttsbench: {res['sessions']} reports, frames {res['frames']}")
+    return calls["bf16_step"]
+
+
+def phase_ttsprobe(torch):
+    """Phase ``ttsprobe``: ``python -m infernos_tpu_torch.bench.ttsprobe
+    --slots 24 --ticks 60 --frames 96`` (full width, zero weights, bf16):
+    the tick time of the kernel path.  Checks: its line, kernel 2 (bf16)
+    once per step over its whole run (it has no warm-up: its first tick,
+    timed apart, is part of the probe).  Returns the bf16 launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("ttsprobe", "infernos_tpu_torch.bench.ttsprobe",
+                  ["--slots", "24", "--ticks", "60", "--frames", "96"], timeout=300)
+    check(r.rc == 0 and r.lines, f"ttsprobe: the bench exited {r.rc}")
+    res = r.lines[-1]["fused"]
+    calls = bench_launches(r, "ttsprobe", stt=False)
+    emit("ttsprobe", card=card_info(), seconds=r.seconds, result=res, launches=calls)
+    check(0 < res["tick_p50_ms"] <= res["tick_p95_ms"], f"ttsprobe: {res}")
+    return calls["bf16_step"]
+
+
+LLM_BENCH_ARGS = ["--dims", "7b", "--slots", "8", "--new", "48", "--reqs", "16",
+                  "--prompt", "256"]
+
+
+def phase_llmbench(torch):
+    """Phase ``llmbench``: ``python -m infernos_tpu_torch.bench.llmbench
+    --dims 7b --slots 8 --new 48 --reqs 16 --prompt 256`` (Qwen2.5-7B dims
+    in the int8 layout, bf16), then the same with ``--spec``.  Checks:
+    every request finishes with its 48 tokens; no kernel of this port
+    launches (the LLM runs none).  Prints tokens/s, generation p50/p95 and
+    the speculative emit mean of each mode."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    torch.cuda.empty_cache()
+    out = {}
+    for mode, extra in (("k8", []), ("spec", ["--spec"])):
+        r = run_bench(f"llmbench_{mode}", "infernos_tpu_torch.bench.llmbench",
+                      LLM_BENCH_ARGS + extra, timeout=300)
+        check(r.rc == 0 and r.lines, f"llmbench {mode}: the bench exited {r.rc}")
+        res = r.lines[-1]
+        d = res["detail"]
+        check(d["finished"] == 16 and d["tokens"] == 16 * 48,
+              f"llmbench {mode}: {d['finished']} finished, {d['tokens']} tokens")
+        check(r.work["done"]["attention"] == 0 and r.work["done"]["bf16_step"] == 0
+              and r.work["done"]["int8_step"] == 0,
+              f"llmbench {mode}: a port kernel launched: {r.work['done']}")
+        out[mode] = {"seconds": r.seconds, "llm_decode_tok_per_s": res["value"],
+                     "unit": res["unit"], **d}
+    emit("llmbench", card=card_info(), **out)
+
+
+AIA_SILENT_TURNS = 2  # what the tiny LLM leaves unanswered in bf16 on the card
+
+
+def phase_aia_bench(torch):
+    """Phase ``aia_bench``: ``python -m infernos_tpu_torch.bench.aiabench
+    --tiny-real --calls 2 --turns 2 --turn-timeout 10``: two attendant
+    calls over SIP on the trained tiny trio (bf16), the sessions' DEBUG log
+    on (a reply takes about 2.6 s; a turn the LLM leaves unanswered waits
+    10 s, not the default 90).  Checks: 2 answered; of the 4 turns,
+    ``AIA_SILENT_TURNS`` (2) failed, each one the tiny LLM answered with
+    ``<nothingtosay>``, and the others measured a reply.  The bench's
+    seeded intents give 2 such turns in bf16 on the card in every run
+    (after "what is my order tatus" and "can me speak with meu"), and 1 in
+    fp32 on the CPU, in the port and in the reference package alike.  Also
+    the calls' launches (kernel 1 = 2 x encodes, kernel 2 = steps).  Prints
+    the reply latency p50/p95, the STT texts and the LLM replies.  Returns
+    (attention, bf16 step) launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("aia_bench", "infernos_tpu_torch.bench.aiabench",
+                  ["--tiny-real", "--calls", "2", "--turns", "2", "--turn-timeout", "10"],
+                  timeout=300, env_extra={"INFERNOS_LOG_LEVEL": "DEBUG"})
+    res = r.lines[-1] if r.lines else {}
+    heard = [ln.split(": stt ", 1)[1] for ln in r.err.splitlines() if ": stt " in ln]
+    replies = [ln.split(": llm ", 1)[1] for ln in r.err.splitlines() if ": llm " in ln]
+    silent = sum(rep.startswith("'<nothingtosay>'") for rep in replies)
+    calls = bench_launches(r, "aia_bench") if r.rc == 0 else None
+    emit("aia_bench", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
+         stt=heard, llm=replies, launches=calls)
+    check(r.rc == 0, f"aia_bench: aiabench exited {r.rc}")
+    check(res.get("answered") == 2 and res["turns"] == 4 - AIA_SILENT_TURNS,
+          f"aia_bench: want 2 answered and {4 - AIA_SILENT_TURNS} turns measured: {res}")
+    check(res["failures"] == silent == AIA_SILENT_TURNS,
+          f"aia_bench: {res['failures']} failed turns, {silent} silent replies, want "
+          f"{AIA_SILENT_TURNS}: {replies}")
+    return calls["attention"], calls["bf16_step"]
+
+
+def phase_echo(torch):
+    """Phase ``echo``: ``python -m infernos_tpu_torch.bench.echo --tiny-real
+    --utterances 2``: one RTP leg through VAD, the tiny-real STT and TTS
+    actors and back (no SIP).  Checks: an echo latency and an STT latency
+    per utterance, echoed audio received; the launches after the actors'
+    warm-ups.  Returns (attention, bf16 step) launches."""
+    from infernos_tpu_torch.utils.platform import card_info
+
+    r = run_bench("echo", "infernos_tpu_torch.bench.echo",
+                  ["--tiny-real", "--utterances", "2"], timeout=300)
+    res = r.lines[-1] if r.lines else {}
+    calls = bench_launches(r, "echo") if r.rc == 0 else None
+    emit("echo", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
+         launches=calls)
+    check(r.rc == 0, f"echo: the bench exited {r.rc}")
+    check(len(res.get("echo_latency_s", [])) == 2 and len(res.get("stt_latency_s", [])) == 2,
+          f"echo: want an echo and an STT latency per utterance: {res}")
+    check(res["rx_audio_s"] > 0, f"echo: no echoed audio: {res}")
+    return calls["attention"], calls["bf16_step"]
+
+
+RAMP_PROFILE_HZ = "200"
+# a turn SLA no turn reaches: the profiled level runs once, not again on a
+# miss as lt_ramp's does (that retry measures the ramp, not the host)
+RAMP_PROFILE_SLA_S = "600"
+
+
+def phase_ramp_profile(torch):
+    """Phase ``ramp_profile``: ``ltbench --ramp --full --turns 2 --levels
+    2 --sla 600`` (as ``lt_ramp`` runs it, but the level runs once) with
+    ``INFERNOS_PYSAMPLER`` set: the host profile of a two-call level.
+    Checks: one level, both calls answered; the dump exists and holds
+    samples from the level only (the sampler is reset before the ladder:
+    its sampled time is within the levels' wall time, and no sampled stack
+    is a warm-up's); the launches as ``lt_ramp``'s.  Prints the level's turn
+    p95, the on-CPU share, the top 10 on-CPU and waiting leaves and the
+    on-CPU threads.  Returns (attention, bf16 step) launches."""
+    import tempfile
+
+    from infernos_tpu_torch.utils.platform import card_info
+
+    torch.cuda.empty_cache()
+    dump = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_prof_"), "prof.json")
+    r = run_bench("ramp_profile", "infernos_tpu_torch.bench.ltbench",
+                  ["--ramp", "--full", "--turns", "2", "--levels", "2",
+                   "--sla", RAMP_PROFILE_SLA_S], timeout=600,
+                  env_extra={**LT_RAMP_ENV, "INFERNOS_PYSAMPLER": dump,
+                             "INFERNOS_PYSAMPLER_HZ": RAMP_PROFILE_HZ})
+    ramp = [ln for ln in r.lines if ln.get("metric") == "lt_calls_per_chip"]
+    levels = ramp[-1].get("detail", {}).get("levels", []) if ramp else []
+    calls = bench_launches(r, "ramp_profile") if r.rc == 0 else None
+    check(r.rc == 0, f"ramp_profile: ltbench exited {r.rc}")
+    check(os.path.exists(dump), "ramp_profile: the sampler left no dump")
+    with open(dump) as f:
+        prof = json.load(f)
+    on = sum(n for _, n in prof["on_cpu_leaves"])
+    wait = sum(n for _, n in prof["waiting_leaves"])
+    sampled_s = prof["n_samples"] * prof["interval_s"]
+    levels_s = sum(lv["wall_s"] for lv in levels)
+    emit("ramp_profile", card=card_info(), seconds=r.seconds, levels=levels,
+         turn_p95_s=[lv["turn_p95_s"] for lv in levels], n_samples=prof["n_samples"],
+         interval_s=prof["interval_s"], sampled_s=sampled_s, levels_wall_s=levels_s,
+         on_cpu_share_top40=on / max(1, on + wait),
+         on_cpu_leaves=prof["on_cpu_leaves"][:10], waiting_leaves=prof["waiting_leaves"][:10],
+         on_cpu_threads=prof["on_cpu_threads"][:10], on_cpu_stacks=prof["on_cpu_stacks"][:10],
+         launches=calls)
+    check(len(levels) == 1 and levels[0]["n_calls"] == 2 and levels[0]["answered"] == 2,
+          f"ramp_profile: want one level that answered its two calls: {levels}")
+    check(prof["n_samples"] > 0 and on > 0, f"ramp_profile: {prof['n_samples']} samples")
+    check(sampled_s <= levels_s + 5.0,
+          f"ramp_profile: {sampled_s:.1f} s sampled over {levels_s:.1f} s of levels")
+    check(not any("warmup" in k or "build_cluster" in k for k, _ in prof["on_cpu_stacks"]),
+          "ramp_profile: the dump holds the boot's stacks")
+    return calls["attention"], calls["bf16_step"]
+
+
 # -- last phase: what the card runs for one attention call and one encode -----
 
 def device_launches(torch, fn) -> int:
@@ -3142,14 +3567,36 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
                       f"on the card, want the step kernel alone")
 
 
+# the phases ``--only benches`` runs, in order (``--phases`` picks some)
+BENCH_PHASES = {
+    "paced_tts": lambda torch, attn: phase_paced_tts(torch),
+    "lt_bench_tiny": lambda torch, attn: phase_lt_bench_tiny(torch),
+    "lt_ramp": lambda torch, attn: phase_lt_ramp(torch),
+    "loopback": lambda torch, attn: phase_loopback(torch),
+    "stt_ladder": lambda torch, attn: phase_stt_ladder(torch, attn),
+    "sttbench": lambda torch, attn: phase_sttbench(torch),
+    "ttsbench": lambda torch, attn: phase_ttsbench(torch),
+    "ttsprobe": lambda torch, attn: phase_ttsprobe(torch),
+    "llmbench": lambda torch, attn: phase_llmbench(torch),
+    "aia_bench": lambda torch, attn: phase_aia_bench(torch),
+    "echo": lambda torch, attn: phase_echo(torch),
+    "ramp_profile": lambda torch, attn: phase_ramp_profile(torch),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the engine runs; kernel tables go to DIR")
     ap.add_argument("--only", choices=["attention", "kernels", "benches"],
                     help="stop after the attention kernel's phase, or after "
-                         "all kernel phases, or run the bench phases alone "
-                         "after the build (prints no result line)")
+                         "all kernel phases, or run the bench phases (and "
+                         "stt_ladder) alone after the build (prints no "
+                         "result line)")
+    ap.add_argument("--phases", metavar="NAME,...",
+                    help="run only these of the bench phases and stt_ladder, "
+                         "in the order given, after the build (prints no "
+                         "result line): " + ", ".join(BENCH_PHASES))
     args = ap.parse_args(argv)
     import torch
 
@@ -3185,11 +3632,11 @@ def main(argv=None) -> int:
     check(step_sass is None or step_sass["HMMA"] > 0,
           "the decoder-step library holds no tensor-core product (HMMA)")
 
-    if args.only == "benches":
-        phase_paced_tts(torch)
-        phase_lt_bench_tiny(torch)
-        phase_lt_ramp(torch)
-        phase_loopback(torch)
+    if args.only == "benches" or args.phases:
+        names = args.phases.split(",") if args.phases else list(BENCH_PHASES)
+        check(set(names) <= set(BENCH_PHASES), f"--phases: unknown {names}")
+        for name in names:
+            BENCH_PHASES[name](torch, attn)
         return 0
     kernels = [phase_attention(torch, attn)]
     if args.only == "attention":
@@ -3221,6 +3668,14 @@ def main(argv=None) -> int:
     ltt_attn, ltt_bf16 = phase_lt_bench_tiny(torch)
     ramp_attn, ramp_bf16 = phase_lt_ramp(torch)
     loop_attn, loop_bf16 = phase_loopback(torch)
+    ladder_attn = phase_stt_ladder(torch, attn, stt_params)
+    sttb_attn = phase_sttbench(torch)
+    ttsb_bf16 = phase_ttsbench(torch)
+    probe_bf16 = phase_ttsprobe(torch)
+    phase_llmbench(torch)
+    aiab_attn, aiab_bf16 = phase_aia_bench(torch)
+    echo_attn, echo_bf16 = phase_echo(torch)
+    prof_attn, prof_bf16 = phase_ramp_profile(torch)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
     # (the daemons' calls and the LT benches' levels in their own
@@ -3229,13 +3684,16 @@ def main(argv=None) -> int:
     by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
                "sip_call": sip_attn, "daemon": dmn_attn, "aia_call": aia_attn,
                "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
-               "loopback": loop_attn}
+               "loopback": loop_attn, "stt_ladder": ladder_attn, "sttbench": sttb_attn,
+               "aia_bench": aiab_attn, "echo": echo_attn, "ramp_profile": prof_attn}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
                "sip_call": sip_bf16, "daemon": dmn_bf16, "aia_call": aia_bf16,
                "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,
-               "lt_ramp": ramp_bf16, "loopback": loop_bf16}
+               "lt_ramp": ramp_bf16, "loopback": loop_bf16, "ttsbench": ttsb_bf16,
+               "ttsprobe": probe_bf16, "aia_bench": aiab_bf16, "echo": echo_bf16,
+               "ramp_profile": prof_bf16}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     kernels[2]["launches"] = turn_int8

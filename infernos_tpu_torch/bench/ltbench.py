@@ -22,8 +22,11 @@ far-end phone, config and ``main.build_cluster``.  What differs, and why:
   is no tone fallback.
 - The default ramp ladder starts at one call (see ``main``), and the
   result carries no baseline ratio: the reference's figures were measured
-  on other hardware.  The XLA compile cache and the Python sampler hooks
-  have no counterpart here.
+  on other hardware.  The XLA compile cache has no counterpart here.
+- ``INFERNOS_PYSAMPLER`` profiles the run as in the reference
+  (``utils/pysampler.py``): the sampler starts with ``main``, is reset
+  before the ramp's ladder (the levels are profiled, the boot is not) and
+  dumps its report before the process's hard exit.
 """
 
 from __future__ import annotations
@@ -528,7 +531,9 @@ def main(argv=None) -> None:
     from ..config import InfernConfig
     from ..main import build_cluster
     from ..utils.platform import default_device
+    from ..utils.pysampler import maybe_start_from_env
 
+    maybe_start_from_env()  # INFERNOS_PYSAMPLER=prof.json to profile
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=4)
     ap.add_argument("--turns", type=int, default=3)
@@ -588,6 +593,10 @@ def main(argv=None) -> None:
                 # the last stdout JSON line is the freshest passing level
                 print(json.dumps(_ramp_json(best, results)), flush=True)
 
+            from ..utils import pysampler as _ps
+
+            if _ps._auto is not None:  # profile the LEVELS, not the boot
+                _ps._auto.reset()
             best, results = run_lt_ramp(
                 iconf.sip_conf.bind, far, levels, turns=args.turns,
                 sla_turn_s=args.sla, on_level=_on_level)
@@ -609,6 +618,15 @@ def main(argv=None) -> None:
         # exit at interpreter teardown.
         sys.stdout.flush()
         sys.stderr.flush()
+        try:
+            # os._exit skips atexit: flush the profiler dump (if any) by hand
+            from ..utils.pysampler import _auto as _sampler
+
+            if _sampler is not None:
+                _sampler.stop()
+                _sampler.dump(os.environ["INFERNOS_PYSAMPLER"])
+        except Exception:
+            traceback.print_exc()
         try:
             stop_all()
             far.close()

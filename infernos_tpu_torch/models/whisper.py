@@ -221,3 +221,87 @@ def decode_step(params, cfg: WhisperConfig, tokens, cache: WhisperCache, pos,
         x = x + L.linear(L.gelu(L.linear(h, lp["fc1"])), lp["fc2"])
     x = L.layer_norm(x, params["dec_ln"])[:, 0]
     return x @ params["tok_embed"]["w"].T
+
+
+@torch.no_grad()
+def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, prompt_len: int,
+                *, beam_size: int, max_new: int, eos_id: int,
+                suppress_mask=None, begin_suppress_mask=None,
+                length_penalty: float = 1.0, dtype=torch.float32):
+    """Beam search over ONE utterance (the decode-quality ladder's top rung;
+    upstream Infernos decodes with ctranslate2's default beam search).
+
+    ``enc_out`` ``[1, S, D]``; ``prompt`` ``[P]`` token ids (padded; only
+    the first ``prompt_len`` are read); masks ``[V]`` bool (True =
+    suppressed; the begin mask only at the first generated position).
+    The prompt is prefilled one position per ``decode_step`` into a dense
+    cache of ``prompt_len + max_new`` rows; then ``max_new`` expansions over
+    ``beam_size`` beams, the self K/V cache gathered by parent beam on its
+    batch axis each step.  Finished beams carry on with zero-cost EOS, so
+    their scores freeze.
+
+    Returns device tensors (tokens ``[max_new]`` EOS-padded, n_tokens,
+    sum_logprob) of the best length-normalised beam.
+    """
+    W = beam_size
+    dev = enc_out.device
+    V = params["tok_embed"]["w"].shape[0]
+    NEG = -1e30
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    enc = enc_out.to(dtype)
+
+    cache = init_cache(cfg, 1, prompt_len + max_new, enc.shape[1], dev, dtype)
+    cache = fill_cross_kv(params, cfg, cache, enc)
+    for i in range(prompt_len):
+        logits = decode_step(params, cfg, prompt[i:i + 1], cache,
+                             torch.full((1,), i, dtype=torch.long, device=dev))
+    last_logits = logits[0]
+
+    # W beams share the prompt's self K/V and read one cross K/V
+    cache.self_k = cache.self_k.repeat(1, W, 1, 1, 1)
+    cache.self_v = cache.self_v.repeat(1, W, 1, 1, 1)
+    cache.cross_k = cache.cross_k.expand(-1, W, -1, -1, -1)
+    cache.cross_v = cache.cross_v.expand(-1, W, -1, -1, -1)
+    eos_onehot = torch.arange(V, device=dev) == eos_id
+    fin_row = torch.where(eos_onehot, 0.0, NEG)
+
+    def logp_of(logits):
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        if suppress_mask is not None:
+            lp = lp.masked_fill(suppress_mask[None, :], NEG)
+        return lp
+
+    def expand(cum, fin, lp):
+        lp = torch.where(fin[:, None], fin_row[None, :], lp)
+        top, idx = torch.topk((cum[:, None] + lp).reshape(-1), W)
+        return top, idx // V, idx % V
+
+    # first expansion: only beam 0 is alive, so the top W are W distinct
+    # first tokens from its row
+    cum0 = torch.full((W,), NEG, device=dev)
+    cum0[0] = 0.0
+    lp0 = logp_of(last_logits[None].expand(W, V))
+    if begin_suppress_mask is not None:
+        lp0 = lp0.masked_fill(begin_suppress_mask[None, :], NEG)
+    cum, _, tok = expand(cum0, torch.zeros(W, dtype=torch.bool, device=dev),
+                         lp0)
+    fin = tok == eos_id
+    n_gen = (~fin).long()
+    toks = torch.zeros((W, max_new), dtype=torch.long, device=dev)
+    toks[:, 0] = tok
+
+    for t in range(1, max_new):
+        pos = torch.full((W,), prompt_len + t - 1, dtype=torch.long, device=dev)
+        logits = decode_step(params, cfg, tok, cache, pos)
+        cum, parent, tok = expand(cum, fin, logp_of(logits))
+        cache.self_k = cache.self_k.index_select(1, parent)
+        cache.self_v = cache.self_v.index_select(1, parent)
+        fin, n_gen, toks = fin[parent], n_gen[parent], toks[parent]
+        now_eos = tok == eos_id
+        n_gen = torch.where(fin | now_eos, n_gen, n_gen + 1)
+        toks[:, t] = torch.where(fin, torch.full_like(tok, eos_id), tok)
+        fin = fin | now_eos
+
+    norm = n_gen.clamp(min=1).float() ** length_penalty
+    best = torch.argmax(cum / norm)
+    return toks[best], n_gen[best], cum[best]

@@ -109,6 +109,36 @@ SUPPRESS_V3: Tuple[int, ...] = (
 BEGIN_SUPPRESS: Tuple[int, ...] = (220, 50257)
 
 
+def build_prompt(
+    specials: WhisperSpecials,
+    lang: str,
+    mode: str = "transcribe",
+    timestamps: bool = False,
+    context: Optional[Sequence[int]] = None,
+    max_prompt_tokens: int = 32,
+) -> Tuple[list, int]:
+    """Token prompt for one utterance; returns ``(ids, sot_index)``.
+
+    Layout matches OpenAI decode semantics and upstream Infernos's builder:
+    rolling context, when present, is prefixed by ``<|startofprev|>``; the
+    tail is ``[sot, lang, task] (+ notimestamps unless timestamps)``.  The
+    prompt is truncated from the LEFT so the sot tail always survives.
+    """
+    task = specials.translate if mode == "translate" else specials.transcribe
+    tail = [specials.sot, specials.lang_token(lang), task]
+    if not timestamps:
+        tail.append(specials.notimestamps)
+    prompt: list = []
+    if context is not None and len(context):
+        room = max_prompt_tokens - len(tail) - 1
+        if room > 0:
+            prompt.append(specials.startofprev)
+            prompt.extend(list(context)[-room:])
+    prompt.extend(tail)
+    sot_index = len(prompt) - len(tail)
+    return prompt, sot_index
+
+
 def decode_with_timestamps(tokens: Sequence[int], detokenize,
                            specials: WhisperSpecials) -> str:
     """Detokenize, rendering timestamp tokens as ``<|s.ss|>`` markers.

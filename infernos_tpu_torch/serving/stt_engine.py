@@ -11,11 +11,20 @@ Port of ``infernos_tpu/serving/stt_engine.py`` with the same semantics:
 - ``steps_per_dispatch`` greedy steps per ``step()``, suppress ids, EOS;
 - non-blocking joins: the first token stays on the device and
   ``(first_tok, ns_prob)`` are fetched once, at the slot's first harvest;
-- submitters only take ``_sub_lock``; the stepping thread holds ``_lock``.
+- submitters only take ``_sub_lock``; the stepping thread holds ``_lock``;
+- the decode-quality ladder (opt-in, OpenAI whisper semantics): a result
+  that fails the gate (low average logprob, or a repetition loop by zlib
+  compression ratio) is decoded again at each ``fallback_temperatures``
+  rung in turn, and once the rungs are spent and the gate still fails,
+  re-decoded once with beam search (``fallback_beam_size``); the caller
+  sees only the final result.
 
 Each decode step writes its K/V row in place at the slot's position (the
 reference's per-dispatch ring and merge exist only to avoid XLA scatter
-copies).  The fallback ladder and beam rung are not ported yet.
+copies).  Sampled rungs draw Gumbel noise from the engine's own
+``torch.Generator`` on its device (the reference's ``jax.random`` draw
+cannot be reproduced), and only in dispatches where a live slot's request
+asks for a temperature, which the host knows without reading the device.
 """
 
 from __future__ import annotations
@@ -37,11 +46,15 @@ from ..models import layers as L
 from ..models import whisper as wsp
 from ..models.whisper_tokens import (BEGIN_SUPPRESS, LANG_BASE, LANGUAGES,
                                      SPECIALS_V3, SUPPRESS_V3, V2_VOCAB,
-                                     decode_with_timestamps, specials_for_vocab)
+                                     WhisperSpecials, decode_with_timestamps,
+                                     specials_for_vocab)
 from ..utils.metrics import metrics
 from ..utils.platform import default_device
 
 log = logging.getLogger("infernos_tpu_torch.serving.stt")
+
+#: OpenAI whisper's escalating-temperature fallback ladder
+OPENAI_LADDER = (0.2, 0.4, 0.6, 0.8, 1.0)
 
 LANG_TOKENS_V3 = {code: LANG_BASE + i for i, code in enumerate(LANGUAGES)}
 
@@ -69,11 +82,40 @@ class STTEngineConfig:
     # -1 = auto (the model's trained length), 0 = per-bucket encode
     encode_pad_s: int = -1
     steps_per_dispatch: int = 8
+    # decode-quality ladder, opt-in (() = plain greedy, as upstream
+    # Infernos serves): a finished result whose average token logprob is
+    # under ``logprob_threshold`` or whose text's zlib compression ratio is
+    # over ``compression_ratio_threshold`` is decoded again at the next
+    # temperature.  OPENAI_LADDER is the standard setting for real weights;
+    # random bench weights fail the gate on every utterance.
+    fallback_temperatures: Sequence[float] = ()
+    logprob_threshold: float = -1.0
+    compression_ratio_threshold: float = 2.4
+    # top rung: once the temperatures are spent and the gate still fails,
+    # one beam-search re-decode of this width (0 = off).  It runs one
+    # utterance and blocks the stepping thread for its duration: a rare
+    # quality path, never a serving config's.
+    fallback_beam_size: int = 0
+    beam_length_penalty: float = 1.0
     trim_lead_silence: float = 0.0
 
     @property
     def max_total_tokens(self) -> int:
         return self.max_prompt_tokens + self.max_new_tokens
+
+    @classmethod
+    def for_specials(cls, specials: WhisperSpecials, **kw) -> "STTEngineConfig":
+        """Config wired to a resolved token layout (v2 or v3)."""
+        base = specials.lang_token(LANGUAGES[0])
+        langs = {code: base + i
+                 for i, code in enumerate(LANGUAGES[: specials.n_langs])}
+        kw.setdefault("lang_tokens", langs)
+        kw.setdefault("task_transcribe", specials.transcribe)
+        kw.setdefault("task_translate", specials.translate)
+        kw.setdefault("no_timestamps", specials.notimestamps)
+        kw.setdefault("no_speech", specials.nospeech)
+        kw.setdefault("sot_prev", specials.startofprev)
+        return cls(**kw)
 
 
 @dataclasses.dataclass
@@ -85,6 +127,10 @@ class STTRequest:
     timestamps: bool = False
     context: Optional[np.ndarray] = None  # previous token ids
     max_ns_prob: float = 0.5
+    # decode-quality ladder state (engine-managed)
+    temperature: float = 0.0
+    attempt: int = 0
+    beam_done: bool = False
 
 
 @dataclasses.dataclass
@@ -96,6 +142,7 @@ class STTResult:
     text: str = ""
     avg_logprob: float = 0.0
     compression_ratio: float = 0.0
+    temperature: float = 0.0  # temperature that produced this result
 
 
 class _Slot:
@@ -142,6 +189,19 @@ class STTEngine:
         self._first_sup = torch.tensor(first, dtype=torch.long,
                                        device=self.device) if first else None
         self.encode_ms: List[float] = []  # host ms of each encode (synced)
+        # sampled rungs' Gumbel draws: one generator on the engine's device
+        # (capturable), and a dispatch counter as the reference keeps
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self._seed = 0
+        self._beam_masks = None
+        if ecfg.fallback_beam_size:
+            V = cfg.vocab_size
+            self._beam_masks = tuple(
+                torch.zeros(V, dtype=torch.bool, device=self.device)
+                .index_fill_(0, torch.tensor(ids, dtype=torch.long,
+                                             device=self.device), True)
+                if ids else None
+                for ids in (sup, self._begin_suppress_ids()))
         self._reset_state()
 
     def _reset_state(self) -> None:
@@ -155,6 +215,7 @@ class STTEngine:
         self.cur_tok = torch.zeros(B, dtype=torch.long, device=dev)
         self.done = torch.ones(B, dtype=torch.bool, device=dev)
         self.logp = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.temp = torch.zeros(B, dtype=torch.float32, device=dev)  # 0 = greedy
 
     # -- device programs ------------------------------------------------------
 
@@ -203,7 +264,7 @@ class STTEngine:
 
     @torch.no_grad()
     def _join(self, slot: int, enc_out, self_k, self_v, prompt_len: int,
-              first_tok) -> None:
+              first_tok, temperature: float = 0.0) -> None:
         """Write one prefilled session into ``slot`` (in place)."""
         S = enc_out.shape[1]
         ck, cv = wsp.cross_kv(self.params, self.cfg, enc_out)  # [L,1,H,S,Dh]
@@ -230,13 +291,26 @@ class STTEngine:
         self.cur_tok[slot] = first_tok
         self.done[slot] = False
         self.logp[slot] = 0.0
+        self.temp[slot] = temperature
+
+    def _gumbel(self, shape, step_i: int):
+        """Standard Gumbel noise for step ``step_i`` of this dispatch, from
+        the engine's generator (tests put the reference's draws here)."""
+        u = torch.rand(shape, generator=self._gen, device=self.device)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
     @torch.no_grad()
     def _step_k(self):
-        """``steps_per_dispatch`` greedy steps for all slots; returns per-step
-        tokens and done flags ``[B, K]`` (device tensors)."""
+        """``steps_per_dispatch`` decode steps for all slots; returns per-step
+        tokens and done flags ``[B, K]`` (device tensors).  Greedy where a
+        slot's ``temp`` is 0, else Gumbel-max sampling at that temperature;
+        each slot's chosen-token logprob (under the unscaled distribution)
+        is summed for the quality gate.  Noise is drawn only when a live
+        slot's request samples (the host's own record)."""
+        sampling = any(s is not None and s.req.temperature > 0.0
+                       for s in self.slots)
         nxts, dones = [], []
-        for _ in range(self.ecfg.steps_per_dispatch):
+        for step_i in range(self.ecfg.steps_per_dispatch):
             not_done = ~self.done
             logits = wsp.decode_step(self.params, self.cfg, self.cur_tok,
                                      self.cache, self.pos,
@@ -245,6 +319,11 @@ class STTEngine:
             if self._sup is not None:
                 lf[:, self._sup] = L.NEG_INF
             nxt = torch.argmax(lf, dim=-1)
+            if sampling:
+                sampled = torch.argmax(
+                    lf / self.temp.clamp_min(1e-6)[:, None]
+                    + self._gumbel(lf.shape, step_i), dim=-1)
+                nxt = torch.where(self.temp > 0.0, sampled, nxt)
             chosen = lf.gather(1, nxt[:, None])[:, 0] - torch.logsumexp(lf, -1)
             self.logp = torch.where(self.done, self.logp, self.logp + chosen)
             new_done = self.done | (nxt == self.cfg.eos_token_id)
@@ -365,11 +444,10 @@ class STTEngine:
                 except Exception:
                     log.exception("stt poison result callback failed")
 
-    def _submit_locked(self, req: STTRequest) -> int:
-        slot = self.free_slots()[0]
-        e = self.ecfg
-        t_start = time.monotonic()
-        n = self._bucket_for(len(req.audio)) * e.sample_rate
+    def _encode(self, req: STTRequest):
+        """Encode ``req``'s audio in its bucket; every encode (a join's or a
+        beam re-decode's) appends its synced host ms to ``encode_ms``."""
+        n = self._bucket_for(len(req.audio)) * self.ecfg.sample_rate
         audio = np.zeros((1, n), np.float32)
         audio[0, : min(len(req.audio), n)] = req.audio[:n]
         if self.device.type == "cuda":
@@ -379,12 +457,19 @@ class STTEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return enc
+
+    def _submit_locked(self, req: STTRequest) -> int:
+        slot = self.free_slots()[0]
+        e = self.ecfg
+        t_start = time.monotonic()
+        enc = self._encode(req)
         prompt, sot_pos = self._build_prompt(req)
         toks = torch.zeros((1, e.max_prompt_tokens), dtype=torch.long)
         toks[0, : len(prompt)] = torch.tensor(prompt)
         first_tok, ns_prob, sk, sv = self._prefill(
             toks.to(self.device), enc, len(prompt), sot_pos)
-        self._join(slot, enc, sk, sv, len(prompt), first_tok)
+        self._join(slot, enc, sk, sv, len(prompt), first_tok, req.temperature)
         sess = _Slot(req, len(prompt), t_start)
         sess.pending_d = (first_tok, ns_prob)
         self.slots[slot] = sess
@@ -403,6 +488,7 @@ class STTEngine:
                 self._inflight = None
                 return self.n_active > 0 or bool(self._pending)
             return bool(self._pending)
+        self._seed += 1
         nxts, dones = self._step_k()
         # one-step pipeline: dispatch step N, harvest step N-1
         prev = self._inflight
@@ -448,13 +534,8 @@ class STTEngine:
             return 0.0
         return len(b) / len(zlib.compress(b))
 
-    def _finish(self, slot: int, sess: _Slot) -> None:
-        self.slots[slot] = None
-        req = sess.req
-        res = STTResult(tokens=sess.tokens, no_speech_prob=sess.ns_prob,
-                        duration=len(req.audio) / self.ecfg.sample_rate,
-                        inf_time=time.monotonic() - sess.t_start)
-        res.avg_logprob = sess.sum_logprob / max(1, len(sess.tokens))
+    def _render(self, req: STTRequest, res: STTResult) -> STTResult:
+        """Fill ``res``'s text and compression ratio from its tokens."""
         if req.timestamps and self.cfg.vocab_size >= V2_VOCAB:
             res.text = decode_with_timestamps(
                 res.tokens, self.detokenize,
@@ -462,7 +543,88 @@ class STTEngine:
         else:
             res.text = self.detokenize(res.tokens)
         res.compression_ratio = self._compression_ratio(res.text)
+        return res
+
+    def _gate_fails(self, req: STTRequest, res: STTResult) -> bool:
+        """OpenAI whisper quality gate: low average logprob or a repetition
+        loop; silence is NOT retried."""
+        e = self.ecfg
+        if res.no_speech_prob > req.max_ns_prob:
+            return False  # treated as silence upstream; a retry wastes a slot
+        if res.compression_ratio > e.compression_ratio_threshold:
+            return True
+        return res.avg_logprob < e.logprob_threshold
+
+    def _needs_fallback(self, req: STTRequest, res: STTResult) -> bool:
+        e = self.ecfg
+        if not e.fallback_temperatures:
+            return False
+        if req.attempt >= len(e.fallback_temperatures):
+            return False
+        return self._gate_fails(req, res)
+
+    def _beam(self, enc, prompt: List[int]):
+        """Beam-search re-decode of one encoded utterance (device tensors)."""
+        e = self.ecfg
+        sup, begin = self._beam_masks
+        return wsp.beam_decode(
+            self.params, self.cfg, enc, prompt, len(prompt),
+            beam_size=e.fallback_beam_size, max_new=e.max_new_tokens,
+            eos_id=self.cfg.eos_token_id, suppress_mask=sup,
+            begin_suppress_mask=begin, length_penalty=e.beam_length_penalty,
+            dtype=e.dtype)
+
+    def _beam_redecode(self, req: STTRequest, base: STTResult) -> STTResult:
+        """Top ladder rung: one blocking beam-search decode (encode
+        included) of ``req``'s audio."""
+        t0 = time.monotonic()
+        prompt, _ = self._build_prompt(req)
+        tk, ng, slp = self._beam(self._encode(req), prompt)
+        ng, slp = int(ng), float(slp)
+        tokens = [int(t) for t in tk[:ng].cpu().tolist()
+                  if int(t) != self.cfg.eos_token_id]
+        res = STTResult(tokens=tokens, no_speech_prob=base.no_speech_prob,
+                        duration=base.duration,
+                        inf_time=base.inf_time + (time.monotonic() - t0))
+        res.avg_logprob = slp / max(1, ng)
+        return self._render(req, res)
+
+    def _finish(self, slot: int, sess: _Slot) -> None:
+        self.slots[slot] = None
+        req = sess.req
+        res = STTResult(tokens=sess.tokens, no_speech_prob=sess.ns_prob,
+                        duration=len(req.audio) / self.ecfg.sample_rate,
+                        inf_time=time.monotonic() - sess.t_start,
+                        temperature=req.temperature)
+        res.avg_logprob = sess.sum_logprob / max(1, len(sess.tokens))
+        self._render(req, res)
+        retry = self._needs_fallback(req, res)
+        if (not retry and self._beam_masks is not None and not req.beam_done
+                and self._gate_fails(req, res)):
+            # temperatures spent (or none) and the gate still fails: ONE
+            # beam re-decode, then deliver whatever it says
+            req.beam_done = True
+            metrics.inc("stt.beam_redecodes")
+            log.info("stt beam rung: avg_logprob %.2f cr %.2f -> beam %d",
+                     res.avg_logprob, res.compression_ratio,
+                     self.ecfg.fallback_beam_size)
+            try:
+                res = self._beam_redecode(req, res)
+            except Exception:
+                log.exception("stt beam re-decode failed; keeping greedy result")
+        if retry:
+            # escalate: decode the same utterance again at the next rung's
+            # temperature; the caller sees only the final result
+            req.temperature = self.ecfg.fallback_temperatures[req.attempt]
+            req.attempt += 1
+            metrics.inc("stt.fallback_retries")
+            log.info("stt fallback: avg_logprob %.2f cr %.2f -> retry @ T=%.1f",
+                     res.avg_logprob, res.compression_ratio, req.temperature)
+            with self._sub_lock:
+                self._pending.appendleft(req)
         self._flush_pending_locked(max_joins=1)  # backfill the freed slot
+        if retry:
+            return
         metrics.observe("stt.inf_time", res.inf_time)
         metrics.observe("stt.audio_s", res.duration)
         req.text_cb(res)

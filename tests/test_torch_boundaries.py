@@ -27,7 +27,13 @@
   the flagship ``python -m infernos_tpu_torch.bench``) load no ``jax``,
   reference or ``tools`` module, make their inputs without them, demand a
   card unless ``INFERNOS_DEVICE=cpu`` asks for the CPU, and the LT bench
-  refuses the tiny random models on a card before it binds anything.
+  refuses the tiny random models on a card before it binds anything;
+- the engine and attendant benches (``bench.sttbench``, ``ttsbench``,
+  ``ttsprobe``, ``llmbench``, ``aiabench``, ``echo``), the sampler
+  (``utils.pysampler``) and the STT quality ladder load no ``jax``,
+  reference or ``tools`` module either; each bench ``main`` demands a card
+  unless ``INFERNOS_DEVICE=cpu`` asks for the CPU and refuses, on a card,
+  the tiny dims the kernels do not take.
 """
 
 import ast
@@ -81,7 +87,9 @@ def test_every_submodule_imports_without_jax_or_reference():
               "apps.live_translator.session", "apps.live_translator.actor",
               "models.presets", "utils.metrics_export", "bench.phone", "main",
               "__main__", "audio.synth_speech", "bench.paced_calls", "bench.ttsmain",
-              "bench.ltbench", "bench.loopback", "bench.__main__"):
+              "bench.ltbench", "bench.loopback", "bench.__main__", "utils.pysampler",
+              "bench.sttbench", "bench.ttsbench", "bench.ttsprobe", "bench.llmbench",
+              "bench.aiabench", "bench.echo"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -521,6 +529,89 @@ def test_benches_reach_no_tools_and_fall_back_to_nothing(path):
     assert "sys.path" not in src
     for word in ("last_recorded_hardware", "vs_baseline", "v5e", "/ 50.0"):
         assert word not in src, (path, word)
+
+
+def test_new_benches_and_ladder_load_no_jax_reference_or_tools():
+    """The engine and attendant benches, the sampler and the STT ladder,
+    imported in a fresh interpreter with their inputs made (the STT
+    corpus, a beam search on a tiny random Whisper), load no ``jax``,
+    reference or ``tools`` module."""
+    code = (
+        "import json, sys\n"
+        "import torch\n"
+        "from infernos_tpu_torch.bench import aiabench, echo, llmbench, sttbench, ttsbench, ttsprobe\n"
+        "from infernos_tpu_torch.utils import pysampler\n"
+        "from infernos_tpu_torch.models import presets, whisper as wsp\n"
+        "from infernos_tpu_torch.models.whisper_tokens import SPECIALS_V3, build_prompt\n"
+        "from infernos_tpu_torch.serving.stt_engine import STTEngineConfig\n"
+        "assert len(sttbench.make_g711_corpus(n=2)) == 2\n"
+        "assert build_prompt(SPECIALS_V3, 'en')[0]\n"
+        "assert STTEngineConfig.for_specials(SPECIALS_V3).sot_prev == 50362\n"
+        "cfg = presets.WHISPER_TINY_TEST\n"
+        "p = wsp.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "enc = torch.zeros((1, 10, cfg.d_model))\n"
+        "wsp.beam_decode(p, cfg, enc, [cfg.sot_token_id, 10], 2, beam_size=2, max_new=3,"
+        " eos_id=cfg.eos_token_id)\n"
+        "pysampler.Sampler().report()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" ('jax', 'jaxlib', 'infernos_tpu') + {TOOL_MODULES!r})\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def _new_bench_mains():
+    from infernos_tpu_torch.bench import aiabench, echo, llmbench, sttbench, ttsbench, ttsprobe
+
+    return {"sttbench": (sttbench, "build_engine", lambda: sttbench.main(["--full"])),
+            "ttsbench": (ttsbench, "run_bench", lambda: ttsbench.main(["4", "--full"])),
+            "ttsprobe": (ttsprobe, "run_mode", lambda: ttsprobe.main([])),
+            "llmbench": (llmbench, "zeros_init", lambda: llmbench.main(["--dims", "tiny"])),
+            "aiabench": (aiabench, "build_cluster", lambda: aiabench.main(["--tiny-real"])),
+            "echo": (echo, "run_echo", lambda: echo.main(["--tiny-real"]))}
+
+
+@pytest.mark.parametrize("what", sorted(_new_bench_mains()))
+def test_new_bench_mains_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
+    """Without a card each new bench's ``main`` raises before it builds an
+    engine, a model or a cluster; with ``INFERNOS_DEVICE=cpu`` it goes on,
+    on the CPU (a stub in place of its first step stops it there)."""
+    module, first_step, run = _new_bench_mains()[what]
+    got = []
+
+    def stub(*a, **kw):
+        got.append([x for x in list(a) + list(kw.values()) if isinstance(x, torch.device)])
+        raise _PastTheDevice
+
+    monkeypatch.setattr(module, first_step, stub)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("INFERNOS_DEVICE", raising=False)
+    monkeypatch.setenv("INFERNOS_MODEL_MODE", "")  # --tiny-real sets it
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    assert got == []
+    monkeypatch.setenv("INFERNOS_DEVICE", "cpu")
+    with pytest.raises(_PastTheDevice):
+        run()
+    assert got == [[torch.device("cpu")]]
+
+
+@pytest.mark.parametrize("what,argv", [("sttbench", []), ("ttsbench", ["4"])])
+def test_engine_benches_refuse_the_tiny_dims_on_a_card(monkeypatch, what, argv):
+    module, first_step, _ = _new_bench_mains()[what]
+
+    def stub(*a, **kw):
+        raise _PastTheDevice
+
+    monkeypatch.setattr(module, first_step, stub)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("INFERNOS_DEVICE", raising=False)
+    with pytest.raises(SystemExit) as e:
+        module.main(argv)
+    assert e.value.code == 2
+    with pytest.raises(_PastTheDevice):
+        module.main(argv + ["--full"])
 
 
 def _bench_mains():
