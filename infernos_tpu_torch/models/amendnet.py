@@ -29,6 +29,19 @@ class AmendNetConfig:
         return self.pre_frames + self.chunk_frames + self.post_frames
 
 
+def init_params(cfg: AmendNetConfig, generator: torch.Generator, device,
+                dtype=torch.float32) -> Dict[str, Any]:
+    """Seeded random convs (torch.nn default init) with the mask head
+    zeroed, so the net starts as the identity: gain 1, ``tanh`` of the
+    audio."""
+    g, c_in = generator, cfg.num_mels + cfg.frame_size
+    p = {"conv1": L.conv1d_init(g, c_in, cfg.hidden, 3, device, dtype),
+         "conv2": L.conv1d_init(g, cfg.hidden, cfg.hidden, 3, device, dtype),
+         "out": L.conv1d_init(g, cfg.hidden, cfg.frame_size, 3, device, dtype)}
+    p["out"] = {k: torch.zeros_like(v) for k, v in p["out"].items()}
+    return p
+
+
 def load_pretrained(device, dtype: Optional[torch.dtype] = None,
                     path: Optional[str] = None) -> Optional[Dict[str, Any]]:
     """The vendored trained smoother weights (read by file path from

@@ -1,14 +1,17 @@
-"""Parameter trees between the JAX package and the port.
+"""Parameter trees between the JAX package, HF checkpoints and the port.
 
 Both packages use the same key paths and the same leaf layouts (linear
 weights ``[in, out]``, conv weights ``[K, C_in, C_out]``), so a tree of numpy
 arrays taken from the JAX package's parameters maps leaf for leaf onto the
 port's tensors.  The tests use this to feed both packages one set of weights.
+:class:`HFStateDict` reads an HF model's ``state_dict()`` for the models'
+``port_from_hf``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -57,3 +60,63 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+class HFStateDict:
+    """An HF model's ``state_dict()``, read by key name for ``port_from_hf``.
+
+    Every key must be read once or match a pattern of ``skip`` (a regex ->
+    the reason it holds no weight the port needs); :meth:`finish` raises
+    ``ValueError`` naming any other key, so a checkpoint whose layout has
+    drifted loses no tensor silently.  Leaves come out fp32 on the state
+    dict's device, in the port's layouts, never through the host.
+    """
+
+    def __init__(self, model, skip: Dict[str, str]):
+        self.sd = dict(model.state_dict())
+        self.skip = skip
+        self.read: set = set()
+
+    def has(self, key: str) -> bool:
+        return key in self.sd
+
+    def t(self, key: str) -> torch.Tensor:
+        """The tensor at ``key`` as fp32, marked read."""
+        if key not in self.sd:
+            raise ValueError(f"port_from_hf: state dict has no {key!r}")
+        self.read.add(key)
+        return self.sd[key].detach().float()
+
+    def tied(self, key: str, to: str) -> None:
+        """``key`` must equal ``to`` (a tied weight the port stores once; on
+        the meta device only the shapes can be compared)."""
+        if key in self.sd:
+            a, b = self.t(key), self.t(to)
+            if a.shape != b.shape or (a.device.type != "meta" and not torch.equal(a, b)):
+                raise ValueError(f"port_from_hf: {key!r} is not tied to {to!r}")
+
+    def lin(self, prefix: str) -> Dict[str, torch.Tensor]:
+        """``Linear`` ``[out, in]`` -> ``{"w": [in, out](, "b")}``."""
+        p = {"w": self.t(f"{prefix}.weight").T.contiguous()}
+        if self.has(f"{prefix}.bias"):
+            p["b"] = self.t(f"{prefix}.bias")
+        return p
+
+    def ln(self, prefix: str) -> Dict[str, torch.Tensor]:
+        return {"g": self.t(f"{prefix}.weight"), "b": self.t(f"{prefix}.bias")}
+
+    def conv(self, prefix: str) -> Dict[str, torch.Tensor]:
+        """``Conv1d`` ``[C_out, C_in, K]`` -> ``[K, C_in, C_out]``, and
+        ``ConvTranspose1d`` ``[C_in, C_out, K]`` -> ``[K, C_out, C_in]``
+        (the same axis reversal)."""
+        p = {"w": self.t(f"{prefix}.weight").permute(2, 1, 0).contiguous()}
+        if self.has(f"{prefix}.bias"):
+            p["b"] = self.t(f"{prefix}.bias")
+        return p
+
+    def finish(self) -> None:
+        left = [k for k in self.sd if k not in self.read
+                and not any(re.fullmatch(p, k) for p in self.skip)]
+        if left:
+            raise ValueError(f"port_from_hf: {len(left)} state-dict keys were "
+                             f"not read: {left[:8]}")

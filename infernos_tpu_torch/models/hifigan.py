@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from .convert import HFStateDict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +97,44 @@ def apply(params, cfg: HifiGanConfig, spectrogram):
     x = F.leaky_relu(x, 0.01)  # HF uses the torch default slope here
     x = L.conv1d(x, params["conv_post"], padding=3)
     return torch.tanh(x)[:, :, 0]
+
+
+# -- HF weight import ----------------------------------------------------------
+
+#: state-dict keys ``port_from_hf`` does not read (none: every tensor of
+#: ``SpeechT5HifiGan`` is a weight or the input normalisation)
+HF_SKIPPED: Dict[str, str] = {}
+
+
+def port_from_hf(model) -> Tuple[Dict[str, Any], HifiGanConfig]:
+    """Port an HF ``SpeechT5HifiGan`` (or any object with its ``config`` and
+    ``state_dict()``) to the port's tree, fp32 on the state dict's device."""
+    hc = model.config
+    cfg = HifiGanConfig(
+        model_in_dim=hc.model_in_dim,
+        upsample_initial_channel=hc.upsample_initial_channel,
+        upsample_rates=tuple(hc.upsample_rates),
+        upsample_kernel_sizes=tuple(hc.upsample_kernel_sizes),
+        resblock_kernel_sizes=tuple(hc.resblock_kernel_sizes),
+        resblock_dilation_sizes=tuple(tuple(d) for d in hc.resblock_dilation_sizes),
+        leaky_relu_slope=hc.leaky_relu_slope,
+        normalize_before=hc.normalize_before,
+    )
+    sd = HFStateDict(model, HF_SKIPPED)
+    nk = len(cfg.resblock_kernel_sizes)
+
+    def resblock(i):
+        n = len(cfg.resblock_dilation_sizes[i % nk])
+        return {"convs1": [sd.conv(f"resblocks.{i}.convs1.{j}") for j in range(n)],
+                "convs2": [sd.conv(f"resblocks.{i}.convs2.{j}") for j in range(n)]}
+
+    params = {
+        "conv_pre": sd.conv("conv_pre"),
+        "ups": [sd.conv(f"upsampler.{i}") for i in range(len(cfg.upsample_rates))],
+        "resblocks": [resblock(i) for i in range(len(cfg.upsample_rates) * nk)],
+        "conv_post": sd.conv("conv_post"),
+        "mean": sd.t("mean"),
+        "scale": sd.t("scale"),
+    }
+    sd.finish()
+    return params, cfg

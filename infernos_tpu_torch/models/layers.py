@@ -180,11 +180,13 @@ def merge_heads(x):
 
 
 def attention(p: Params, x_q, x_kv=None, *, n_heads: int, mask=None,
-              pos_bias=None, scale: Optional[float] = None):
+              pos_bias=None, scale: Optional[float] = None,
+              return_probs: bool = False):
     """Full (non-cached) multi-head attention.
 
     ``mask``: additive ``[B, 1, Tq, Tk]`` or None.  ``pos_bias``:
     SpeechT5-style relative key embeddings ``[Tq, Tk, Dh]``.
+    ``return_probs``: also return the ``[B, H, Tq, Tk]`` weights.
     """
     if x_kv is None:
         x_kv = x_q
@@ -200,8 +202,8 @@ def attention(p: Params, x_q, x_kv=None, *, n_heads: int, mask=None,
     if mask is not None:
         logits = logits + mask.to(logits.dtype)
     w = torch.softmax(logits, dim=-1)
-    out = torch.matmul(w, v)
-    return linear(merge_heads(out), p["o"])
+    out = linear(merge_heads(torch.matmul(w, v)), p["o"])
+    return (out, w) if return_probs else out
 
 
 def write_rows(cache, new, pos, write=None):

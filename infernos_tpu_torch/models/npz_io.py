@@ -1,4 +1,4 @@
-"""Keystr ``.npz`` checkpoints -> nested dicts/lists of torch tensors.
+"""Keystr ``.npz`` checkpoints <-> nested dicts/lists of torch tensors.
 
 The vendored checkpoints under ``infernos_tpu/models/data/`` store each leaf
 under its JAX ``keystr`` path (``['lstm'][0]['wi']``).  The port reads those
@@ -28,6 +28,35 @@ def data_path(name: str) -> str:
     if override:
         return override
     return os.path.join(_DATA_DIR, name)
+
+
+def _keystr_flatten(tree: Any, prefix: str = ""):
+    """``(keystr path, leaf)`` pairs of a nested dict/list tree: dict keys
+    as ``['name']``, list items as ``[0]`` (JAX's ``keystr``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _keystr_flatten(v, f"{prefix}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _keystr_flatten(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def save_params(path: str, params: Any) -> None:
+    """Write a tree as a keystr ``.npz`` that this module's and the
+    reference's ``load_params`` both read (tensors to numpy on the host;
+    bf16 widens to fp32, which numpy lacks)."""
+    flat = {}
+    for key, leaf in _keystr_flatten(params):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+            if leaf.dtype == torch.bfloat16:
+                leaf = leaf.float()
+            leaf = leaf.numpy()
+        flat[key] = np.asarray(leaf)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def load_numpy_tree(path: str) -> Optional[Dict[str, Any]]:

@@ -22,21 +22,21 @@ What differs, and why:
   ``Tmax`` where the reference's clamped update shifts the window back;
   only junk tokens past a slot's budget can tell them apart.
 - Placement over several cards (``param_shardings``, ``cache_shardings``)
-  and HF weight import (``port_from_hf``) come with the multi-device and
-  checkpoint work.
+  comes with the multi-device work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from .convert import HFStateDict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,3 +269,58 @@ def verify_steps(params, cfg: QwenConfig, tokens, cache: QwenCache, pos,
         x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps))
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
     return _readout(params, x), cache
+
+
+# -- HF weight import ----------------------------------------------------------
+
+#: state-dict keys ``port_from_hf`` does not read, each with its reason
+#: (a tied ``lm_head.weight`` is checked equal to the embedding instead)
+HF_SKIPPED: Dict[str, str] = {
+    r"model\.(layers\.\d+\.self_attn\.)?rotary_emb\.inv_freq":
+        "RoPE frequencies, recomputed from rope_theta (older checkpoints "
+        "saved the buffer)",
+}
+
+
+def port_from_hf(model) -> Tuple[Dict[str, Any], QwenConfig]:
+    """Port an HF ``Qwen2ForCausalLM`` (or any object with its ``config``
+    and ``state_dict()``) to the port's tree, fp32 on the state dict's
+    device; ``lm_head`` only when the embeddings are untied."""
+    hc = model.config
+    cfg = QwenConfig(
+        vocab_size=hc.vocab_size,
+        hidden_size=hc.hidden_size,
+        num_layers=hc.num_hidden_layers,
+        num_heads=hc.num_attention_heads,
+        num_kv_heads=hc.num_key_value_heads,
+        head_dim=getattr(hc, "head_dim", None) or hc.hidden_size // hc.num_attention_heads,
+        intermediate_size=hc.intermediate_size,
+        rms_norm_eps=hc.rms_norm_eps,
+        rope_theta=hc.rope_theta,
+        max_positions=hc.max_position_embeddings,
+        eos_token_id=(hc.eos_token_id if isinstance(hc.eos_token_id, int)
+                      else (hc.eos_token_id or [QwenConfig.eos_token_id])[0]),
+        tie_word_embeddings=hc.tie_word_embeddings,
+    )
+    sd = HFStateDict(model, HF_SKIPPED)
+    params: Dict[str, Any] = {
+        "embed": {"w": sd.t("model.embed_tokens.weight")},
+        "layers": L.stack_layers([
+            {"ln1": {"g": sd.t(f"{p}.input_layernorm.weight")},
+             "q": sd.lin(f"{p}.self_attn.q_proj"),
+             "k": sd.lin(f"{p}.self_attn.k_proj"),
+             "v": sd.lin(f"{p}.self_attn.v_proj"),
+             "o": sd.lin(f"{p}.self_attn.o_proj"),
+             "ln2": {"g": sd.t(f"{p}.post_attention_layernorm.weight")},
+             "gate": sd.lin(f"{p}.mlp.gate_proj"),
+             "up": sd.lin(f"{p}.mlp.up_proj"),
+             "down": sd.lin(f"{p}.mlp.down_proj")}
+            for p in (f"model.layers.{i}" for i in range(cfg.num_layers))]),
+        "ln_f": {"g": sd.t("model.norm.weight")},
+    }
+    if cfg.tie_word_embeddings:
+        sd.tied("lm_head.weight", "model.embed_tokens.weight")
+    else:
+        params["lm_head"] = sd.lin("lm_head")
+    sd.finish()
+    return params, cfg

@@ -12,11 +12,12 @@ compute the same step.  The prenet's dropout mask comes from an explicit
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from . import layers as L
+from .convert import HFStateDict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +237,30 @@ def fill_cross_kv(params, cfg: SpeechT5Config, cache: DecoderCache,
                                cross_v=vs.to(cache.cross_v.dtype))
 
 
+def decode_full(params, cfg: SpeechT5Config, dec_in, enc_out, enc_mask=None,
+                return_cross_attn: bool = False):
+    """Teacher-forced decoder over prenet outputs ``[B, T, D]`` -> hidden
+    states ``[B, T, D]`` (the reference for the cached steps and the step
+    kernel); with ``return_cross_attn`` also the per-layer cross-attention
+    weights ``[L, B, H, T, S]``."""
+    T = dec_in.shape[1]
+    H, eps = cfg.decoder_attention_heads, cfg.layer_norm_eps
+    causal = L.causal_bias(T, device=dec_in.device)
+    xmask = L.pad_mask_to_bias(enc_mask, T) if enc_mask is not None else None
+    x, ws = dec_in, []
+    for i in range(cfg.decoder_layers):
+        lp = L.layer_slice(params["dec_layers"], i)
+        x = L.layer_norm(x + L.attention(lp["self_attn"], x, n_heads=H,
+                                         mask=causal), lp["ln1"], eps)
+        h, w = L.attention(lp["cross_attn"], x, enc_out, n_heads=H,
+                           mask=xmask, return_probs=True)
+        ws.append(w)
+        x = L.layer_norm(x + h, lp["ln2"], eps)
+        h = L.linear(L.gelu(L.linear(x, lp["ffn"]["in"])), lp["ffn"]["out"])
+        x = L.layer_norm(x + h, lp["ln3"], eps)
+    return (x, torch.stack(ws)) if return_cross_attn else x
+
+
 def decode_step(params, cfg: SpeechT5Config, x, cache: DecoderCache, pos,
                 enc_mask=None):
     """One plain AR decoder step for all slots: x ``[B, 1, D]``, pos ``[B]``.
@@ -277,3 +302,90 @@ def postnet(params, cfg: SpeechT5Config, mel):
         if i < n - 1:
             x = torch.tanh(x)
     return mel + x
+
+
+# -- HF weight import ----------------------------------------------------------
+
+#: state-dict keys ``port_from_hf`` does not read, each with its reason
+HF_SKIPPED: Dict[str, str] = {
+    r"speech_decoder_postnet\.layers\.\d+\.batch_norm\.num_batches_tracked":
+        "a training counter; inference reads the running statistics",
+}
+
+
+def port_from_hf(model) -> Tuple[Dict[str, Any], SpeechT5Config]:
+    """Port an HF ``SpeechT5ForTextToSpeech`` (or any object with its
+    ``config`` and ``state_dict()``) to the port's tree, fp32 on the state
+    dict's device."""
+    hc = model.config
+    cfg = SpeechT5Config(
+        vocab_size=hc.vocab_size,
+        hidden_size=hc.hidden_size,
+        encoder_layers=hc.encoder_layers,
+        encoder_attention_heads=hc.encoder_attention_heads,
+        encoder_ffn_dim=hc.encoder_ffn_dim,
+        decoder_layers=hc.decoder_layers,
+        decoder_attention_heads=hc.decoder_attention_heads,
+        decoder_ffn_dim=hc.decoder_ffn_dim,
+        num_mel_bins=hc.num_mel_bins,
+        reduction_factor=hc.reduction_factor,
+        speech_decoder_prenet_layers=hc.speech_decoder_prenet_layers,
+        speech_decoder_prenet_units=hc.speech_decoder_prenet_units,
+        speech_decoder_prenet_dropout=hc.speech_decoder_prenet_dropout,
+        speech_decoder_postnet_layers=hc.speech_decoder_postnet_layers,
+        speech_decoder_postnet_units=hc.speech_decoder_postnet_units,
+        speech_decoder_postnet_kernel=hc.speech_decoder_postnet_kernel,
+        speaker_embedding_dim=hc.speaker_embedding_dim,
+        max_text_positions=hc.max_text_positions,
+        max_speech_positions=hc.max_speech_positions,
+        encoder_max_relative_position=hc.encoder_max_relative_position,
+        pad_token_id=hc.pad_token_id,
+    )
+    sd = HFStateDict(model, HF_SKIPPED)
+
+    def mha(p):
+        return {"q": sd.lin(f"{p}.q_proj"), "k": sd.lin(f"{p}.k_proj"),
+                "v": sd.lin(f"{p}.v_proj"), "o": sd.lin(f"{p}.out_proj")}
+
+    def ffn(p):
+        return {"in": sd.lin(f"{p}.feed_forward.intermediate_dense"),
+                "out": sd.lin(f"{p}.feed_forward.output_dense")}
+
+    enc, dec = "speecht5.encoder", "speecht5.decoder"
+    wenc, wdec = f"{enc}.wrapped_encoder", f"{dec}.wrapped_decoder"
+    post = "speech_decoder_postnet"
+    params: Dict[str, Any] = {
+        "text_embed": {"w": sd.t(f"{enc}.prenet.embed_tokens.weight")},
+        "enc_pos_alpha": sd.t(f"{enc}.prenet.encode_positions.alpha"),
+        "enc_rel_pos": {"w": sd.t(f"{wenc}.embed_positions.pe_k.weight")},
+        "enc_ln": sd.ln(f"{wenc}.layer_norm"),
+        "enc_layers": L.stack_layers([
+            {"attn": mha(f"{p}.attention"), "ln1": sd.ln(f"{p}.layer_norm"),
+             "ffn": ffn(p), "ln2": sd.ln(f"{p}.final_layer_norm")}
+            for p in (f"{wenc}.layers.{i}" for i in range(cfg.encoder_layers))]),
+        "dec_prenet": {
+            "layers": [sd.lin(f"{dec}.prenet.layers.{i}")
+                       for i in range(cfg.speech_decoder_prenet_layers)],
+            "final": sd.lin(f"{dec}.prenet.final_layer"),
+            "pos_alpha": sd.t(f"{dec}.prenet.encode_positions.alpha"),
+            "speaker": sd.lin(f"{dec}.prenet.speaker_embeds_layer"),
+        },
+        "dec_layers": L.stack_layers([
+            {"self_attn": mha(f"{p}.self_attn"),
+             "ln1": sd.ln(f"{p}.self_attn_layer_norm"),
+             "cross_attn": mha(f"{p}.encoder_attn"),
+             "ln2": sd.ln(f"{p}.encoder_attn_layer_norm"),
+             "ffn": ffn(p), "ln3": sd.ln(f"{p}.final_layer_norm")}
+            for p in (f"{wdec}.layers.{i}" for i in range(cfg.decoder_layers))]),
+        "feat_out": sd.lin(f"{post}.feat_out"),
+        "prob_out": sd.lin(f"{post}.prob_out"),
+        "postnet": [
+            {"conv": sd.conv(f"{post}.layers.{i}.conv"),
+             "bn": {"g": sd.t(f"{post}.layers.{i}.batch_norm.weight"),
+                    "b": sd.t(f"{post}.layers.{i}.batch_norm.bias"),
+                    "running_mean": sd.t(f"{post}.layers.{i}.batch_norm.running_mean"),
+                    "running_var": sd.t(f"{post}.layers.{i}.batch_norm.running_var")}}
+            for i in range(cfg.speech_decoder_postnet_layers)],
+    }
+    sd.finish()
+    return params, cfg

@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import layers as L
+from .convert import HFStateDict
+from .whisper_tokens import specials_for_vocab
 from ..ops.attention import fused_attention
 
 
@@ -198,6 +200,26 @@ def _layer_kv(c, i):
     return c[i]
 
 
+def decode_full(params, cfg: WhisperConfig, tokens, enc_out, enc_mask=None):
+    """Teacher-forced decoder over ``[B, T]`` tokens -> logits ``[B, T, V]``
+    (the reference for the cached steps and the engine's greedy decode)."""
+    _, T = tokens.shape
+    H = cfg.decoder_attention_heads
+    x = params["tok_embed"]["w"][tokens.long()] + params["dec_pos"]["w"][:T]
+    causal = L.causal_bias(T, device=x.device)
+    xmask = L.pad_mask_to_bias(enc_mask, T) if enc_mask is not None else None
+    for i in range(cfg.decoder_layers):
+        lp = L.layer_slice(params["dec_layers"], i)
+        x = x + L.attention(lp["self_attn"], L.layer_norm(x, lp["ln1"]),
+                            n_heads=H, mask=causal)
+        x = x + L.attention(lp["cross_attn"], L.layer_norm(x, lp["ln2"]),
+                            enc_out, n_heads=H, mask=xmask)
+        h = L.layer_norm(x, lp["ln3"])
+        x = x + L.linear(L.gelu(L.linear(h, lp["fc1"])), lp["fc2"])
+    x = L.layer_norm(x, params["dec_ln"])
+    return x @ params["tok_embed"]["w"].T
+
+
 def decode_step(params, cfg: WhisperConfig, tokens, cache: WhisperCache, pos,
                 enc_mask=None, write: Optional[torch.Tensor] = None):
     """One greedy step for all slots: tokens ``[B]``, pos ``[B]`` -> logits
@@ -305,3 +327,71 @@ def beam_decode(params, cfg: WhisperConfig, enc_out, prompt, prompt_len: int,
     norm = n_gen.clamp(min=1).float() ** length_penalty
     best = torch.argmax(cum / norm)
     return toks[best], n_gen[best], cum[best]
+
+
+# -- HF weight import ----------------------------------------------------------
+
+#: state-dict keys ``port_from_hf`` does not read, each with its reason
+#: (``proj_out.weight`` is checked equal to the token embedding instead)
+HF_SKIPPED: Dict[str, str] = {}
+
+
+def port_from_hf(model) -> Tuple[Dict[str, Any], WhisperConfig]:
+    """Port an HF ``WhisperForConditionalGeneration`` (or any object with its
+    ``config``, ``generation_config`` and ``state_dict()``) to the port's
+    tree, fp32 on the state dict's device."""
+    hc = model.config
+    gen = getattr(model, "generation_config", None)
+    cfg = WhisperConfig(
+        vocab_size=hc.vocab_size,
+        num_mel_bins=hc.num_mel_bins,
+        d_model=hc.d_model,
+        encoder_layers=hc.encoder_layers,
+        encoder_attention_heads=hc.encoder_attention_heads,
+        decoder_layers=hc.decoder_layers,
+        decoder_attention_heads=hc.decoder_attention_heads,
+        ffn_dim=hc.encoder_ffn_dim,
+        max_source_positions=hc.max_source_positions,
+        max_target_positions=hc.max_target_positions,
+        eos_token_id=hc.eos_token_id,
+        sot_token_id=getattr(gen, "decoder_start_token_id",
+                             hc.decoder_start_token_id),
+        # HF generation configs carry no <|nospeech|>; it follows the
+        # vocabulary layout (models/whisper_tokens.py)
+        no_speech_token_id=specials_for_vocab(hc.vocab_size).nospeech,
+    )
+    sd = HFStateDict(model, HF_SKIPPED)
+
+    def attn(p):
+        return {"q": sd.lin(f"{p}.q_proj"), "k": sd.lin(f"{p}.k_proj"),
+                "v": sd.lin(f"{p}.v_proj"), "o": sd.lin(f"{p}.out_proj")}
+
+    enc, dec = "model.encoder", "model.decoder"
+    params = {
+        "conv1": sd.conv(f"{enc}.conv1"),
+        "conv2": sd.conv(f"{enc}.conv2"),
+        "enc_pos": sd.t(f"{enc}.embed_positions.weight"),
+        "enc_layers": L.stack_layers([
+            {"ln1": sd.ln(f"{p}.self_attn_layer_norm"),
+             "attn": attn(f"{p}.self_attn"),
+             "ln2": sd.ln(f"{p}.final_layer_norm"),
+             "fc1": sd.lin(f"{p}.fc1"),
+             "fc2": sd.lin(f"{p}.fc2")}
+            for p in (f"{enc}.layers.{i}" for i in range(cfg.encoder_layers))]),
+        "enc_ln": sd.ln(f"{enc}.layer_norm"),
+        "tok_embed": {"w": sd.t(f"{dec}.embed_tokens.weight")},
+        "dec_pos": {"w": sd.t(f"{dec}.embed_positions.weight")},
+        "dec_layers": L.stack_layers([
+            {"ln1": sd.ln(f"{p}.self_attn_layer_norm"),
+             "self_attn": attn(f"{p}.self_attn"),
+             "ln2": sd.ln(f"{p}.encoder_attn_layer_norm"),
+             "cross_attn": attn(f"{p}.encoder_attn"),
+             "ln3": sd.ln(f"{p}.final_layer_norm"),
+             "fc1": sd.lin(f"{p}.fc1"),
+             "fc2": sd.lin(f"{p}.fc2")}
+            for p in (f"{dec}.layers.{i}" for i in range(cfg.decoder_layers))]),
+        "dec_ln": sd.ln(f"{dec}.layer_norm"),
+    }
+    sd.tied("proj_out.weight", f"{dec}.embed_tokens.weight")
+    sd.finish()
+    return params, cfg

@@ -1,8 +1,15 @@
 """Speaker-embedding bank for TTS voices (port of
-``infernos_tpu/serving/speakers.py``): a deterministic synthetic bank of
-unit-norm vectors until real x-vectors are vendored."""
+``infernos_tpu/serving/speakers.py``): an ``.npz`` bank of x-vectors when
+one is on disk, else a deterministic synthetic bank of unit-norm vectors.
+
+The reference's ``load_hf_xvectors`` downloads the CMU-Arctic bank from
+the Hub; it is not ported until the bank's file is in the repository.
+"""
 
 from __future__ import annotations
+
+import os
+from typing import List, Optional
 
 import numpy as np
 
@@ -24,6 +31,18 @@ class SpeakerBank:
         v /= np.linalg.norm(v, axis=1, keepdims=True)
         return cls(v)
 
+    @classmethod
+    def from_npz(cls, path: str) -> "SpeakerBank":
+        """The ``xvectors`` array of an ``.npz`` file."""
+        return cls(np.load(path)["xvectors"])
+
+    @classmethod
+    def load(cls, path: Optional[str] = None, dim: int = 512) -> "SpeakerBank":
+        """The bank at ``path`` when it exists, else the synthetic one."""
+        if path and os.path.exists(path):
+            return cls.from_npz(path)
+        return cls.synthetic(dim=dim)
+
     def __len__(self) -> int:
         return len(self.vectors)
 
@@ -32,3 +51,13 @@ class SpeakerBank:
 
     def rand_id(self) -> int:
         return int(self._rng.integers(0, len(self.vectors)))
+
+    def top_speakers(self, lang: str, n: int = 50) -> List[int]:
+        """Curated voices per language: a sample keyed by the language, as
+        the reference draws it until loopback QA ranks real voices.  Its
+        seed is ``hash(lang)``, which Python salts per process unless
+        ``PYTHONHASHSEED`` is set: the list is stable within one process
+        only, as the reference's is."""
+        rng = np.random.default_rng(abs(hash(lang)) % (2**32))
+        return list(rng.choice(len(self.vectors), size=min(n, len(self.vectors)),
+                               replace=False))

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port: what it imports and where it runs.
 
 - ``infernos_tpu_torch`` and every submodule import neither ``jax`` nor
-  anything of ``infernos_tpu`` (checked in a fresh interpreter, and in the
-  source text), and neither does ``chip_smoke.py``;
+  anything of ``infernos_tpu`` nor ``transformers`` (checked in a fresh
+  interpreter, and in the source text), and neither does ``chip_smoke.py``;
 - ``default_device()`` raises when there is no CUDA device;
 - on a CUDA tensor the kernel wrappers launch their kernel or raise: the
   dispatch has no route from a CUDA tensor to the plain version and no
@@ -65,8 +65,8 @@ def test_every_submodule_imports_without_jax_or_reference():
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'infernos_tpu' or m.startswith('infernos_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'infernos_tpu', 'transformers'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
@@ -89,7 +89,9 @@ def test_every_submodule_imports_without_jax_or_reference():
               "__main__", "audio.synth_speech", "bench.paced_calls", "bench.ttsmain",
               "bench.ltbench", "bench.loopback", "bench.__main__", "utils.pysampler",
               "bench.sttbench", "bench.ttsbench", "bench.ttsprobe", "bench.llmbench",
-              "bench.aiabench", "bench.echo"):
+              "bench.aiabench", "bench.echo", "models.checkpoint", "models.npz_io",
+              "models.convert", "models.amendnet", "serving.speakers",
+              "tools.port_checkpoints"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -106,6 +108,22 @@ def test_no_source_imports_jax_or_reference(path):
         for n in names:
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "infernos_tpu"), f"{path}: {n}"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: p.name)
+def test_no_source_imports_transformers(path):
+    """The port converts HF checkpoints from their ``state_dict()`` by key
+    name (``port_from_hf``): neither it nor ``chip_smoke.py`` imports
+    ``transformers``, which the card's machine does not have."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert all(n.split(".")[0] != "transformers" for n in names), f"{path}: {names}"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
