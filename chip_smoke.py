@@ -45,72 +45,82 @@ Phases, each printing one JSON line:
                say must equal the same say made alone from the same
                generator state; Bob must get the BYE and no actor thread
                may be left;
-10. daemon  -- ``python -m infernos_tpu_torch -f cfg.yaml`` in a subprocess
+10. remote_call -- the same call with its STT in a second process on the
+               card: a peer serving the port's ``cluster.remote.ActorServer``
+               on 127.0.0.1 hosts a Whisper-large-v3 ``STTActor`` (stt_ladder's
+               draw), whose tokens for the ``stt`` phase's four utterances,
+               each ``text_cb`` crossing back over the socket, must equal the
+               same actor's in this process; then a tiny-real ``STTActor`` in
+               the peer serves the bilingual call as ``build_cluster``'s
+               ``stt_actr`` (0.6 word accuracy both ways; kernel 1 counted in
+               the peer); then the peer gets SIGKILL with an ask outstanding,
+               which must fail with ``ConnectionError`` at once;
+11. daemon  -- ``python -m infernos_tpu_torch -f cfg.yaml`` in a subprocess
                at full width (Whisper-large-v3 tiered, two SpeechT5 +
                HiFi-GAN + AmendNet engines, bf16, zero weights): two
                concurrent calls bridged to a ``FarEnd``, paced RTP to every
                far end, STT and TTS work on ``/metrics``, no driver crash,
                exit 0 within 30 s of SIGTERM;
-11. llm     -- the LLM engine as the full ``LLMActor`` starts it
+12. llm     -- the LLM engine as the full ``LLMActor`` starts it
                (Qwen2.5-7B dims, zeros made in the int8 layout on the card,
                random embedding and readout, bf16) serving four chat
                requests, one per prompt bucket and one short: each
                request's tokens in the batch equal a run of it alone, the
                peak memory stays under the dense bf16 weights; prefill and
                decode times beside the decode step's bound;
-12. llm_tiny -- the trained tiny LLM in bf16: its replies to fixed
+13. llm_tiny -- the trained tiny LLM in bf16: its replies to fixed
                attendant contexts must be the training policy's;
-13. aia_call -- the AI attendant through SIP and the actors, in process,
+14. aia_call -- the AI attendant through SIP and the actors, in process,
                on the tiny-real trio (bf16, Griffin-Lim): a ``FakePhone``
                says "hello" (greeted) and "transfer me to billing please"
                (transferred); the LLM's replies must be the policy's and
                her packets must carry the audio the TTS emitted;
-14. daemon_aia -- the daemon with an ``ai_attendant`` profile at full
+15. daemon_aia -- the daemon with an ``ai_attendant`` profile at full
                width (Whisper-large-v3 tiered, Qwen2.5-7B int8, SpeechT5 +
                HiFi-GAN + AmendNet, zero weights): one call of two
                utterances, STT, LLM and TTS work on ``/metrics``, paced RTP
                holding the emitted audio, exit 0 within 30 s of SIGTERM;
-15. paced_tts -- ``python -m infernos_tpu_torch.bench.ttsmain`` (full-width
+16. paced_tts -- ``python -m infernos_tpu_torch.bench.ttsmain`` (full-width
                SpeechT5 + HiFi-GAN, zero weights, bf16, 24 slots) ramping
                paced calls over 4 s levels: every level spoke, one step
                kernel launch per step; prints the paced calls and ticks;
-16. lt_bench_tiny -- ``python -m infernos_tpu_torch.bench.ltbench
+17. lt_bench_tiny -- ``python -m infernos_tpu_torch.bench.ltbench
                --tiny-real --calls 4 --turns 2``: four two-leg calls of real
                speech through SIP, VAD, the tiny STT, T2T and the tiny TTS;
                4 answered, 8 turns measured, none failed;
-17. lt_ramp -- ``python -m infernos_tpu_torch.bench.ltbench --ramp --full
+18. lt_ramp -- ``python -m infernos_tpu_torch.bench.ltbench --ramp --full
                --turns 2`` at full width on the ladder 1, 2, 4 calls:
                the north star's ``lt_calls_per_chip``, each level's turn
                latency, the engines' stage metrics;
-18. loopback -- ``python -m infernos_tpu_torch.bench.loopback --speakers 4
+19. loopback -- ``python -m infernos_tpu_torch.bench.loopback --speakers 4
                --prompts 2``: tiny-real TTS into tiny-real STT, mean
                similarity at least the reference's on the CPU less 0.1;
-19. stt_ladder -- the STT engine at whisper-large-v3 width with the
+20. stt_ladder -- the STT engine at whisper-large-v3 width with the
                quality ladder on (temperatures 0.5 and 1.0, then a beam of
                5): every request of random weights fails the gate, is
                decoded again at each temperature and once by beam search
                and calls back once; then ``beam_decode`` in fp32: W 1 gives
                a greedy loop's ids, W 5 a sum logprob at least W 1's;
-20. sttbench -- ``python -m infernos_tpu_torch.bench.sttbench --full``
+21. sttbench -- ``python -m infernos_tpu_torch.bench.sttbench --full``
                (16 slots, 24 new tokens, 16 G.711 utterances): all come
                back; the realtime factor and latency percentiles;
-21. ttsbench -- ``python -m infernos_tpu_torch.bench.ttsbench 16 --full``
+22. ttsbench -- ``python -m infernos_tpu_torch.bench.ttsbench 16 --full``
                (8 slots, 128 frames): 16 sessions with frames; first frame
                and real-time ratio;
-22. ttsprobe -- ``python -m infernos_tpu_torch.bench.ttsprobe --slots 24
+23. ttsprobe -- ``python -m infernos_tpu_torch.bench.ttsprobe --slots 24
                --ticks 60 --frames 96``: the kernel path's tick time;
-23. llmbench -- ``python -m infernos_tpu_torch.bench.llmbench --dims 7b``
+24. llmbench -- ``python -m infernos_tpu_torch.bench.llmbench --dims 7b``
                with K 8 and with ``--spec``: every request finishes;
                tokens/s and generation latency;
-24. aia_bench -- ``python -m infernos_tpu_torch.bench.aiabench --tiny-real
+25. aia_bench -- ``python -m infernos_tpu_torch.bench.aiabench --tiny-real
                --calls 2 --turns 2``: 2 answered, every turn replied to
                but those the tiny LLM answers with ``<nothingtosay>``;
-25. echo    -- ``python -m infernos_tpu_torch.bench.echo --tiny-real
+26. echo    -- ``python -m infernos_tpu_torch.bench.echo --tiny-real
                --utterances 2``: an echo per utterance over RTP, no SIP;
-26. ramp_profile -- ``ltbench --ramp --full --turns 2 --levels 2`` with
+27. ramp_profile -- ``ltbench --ramp --full --turns 1 --levels 2`` with
                ``INFERNOS_PYSAMPLER``: the host profile of a two-call
                level (on-CPU and waiting leaves, threads);
-27. ckpt_port -- HF-layout state dicts of Whisper large-v3, SpeechT5 and
+28. ckpt_port -- HF-layout state dicts of Whisper large-v3, SpeechT5 and
                HiFi-GAN built on the card at HF's init, converted by each
                ``port_from_hf`` (every leaf bit for bit, no key unread),
                saved in bf16 by ``checkpoint.save``, loaded cold
@@ -118,7 +128,7 @@ Phases, each printing one JSON line:
                utterance, tokens against ``whisper.decode_full``) and
                ``TTSActor`` (one say of 64 steps, each step against
                ``speecht5.decode_full``, finite audio);
-28. launches -- the kernels and copies the card runs for one
+29. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
@@ -138,13 +148,15 @@ result line; it never falls back to the CPU or to a plain version.  Each
 kernel's launch count is set to 0 right before the path that runs it and
 read right after (in ``daemon`` and ``daemon_aia``, by the daemon's
 process, reported on SIGUSR2 after its warm-ups and after the calls; in
-the bench phases, by the bench's process under ``BENCH_PRELUDE``).  The
+the bench phases, by the bench's process under ``BENCH_PRELUDE``; in
+``remote_call``, kernel 1's by the peer, asked through its probe).  The
 bench phases hold checks, not SLAs: their latencies and rates are printed
 as measurements.
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs); ``--only benches``
 runs the bench phases, ``stt_ladder`` and ``ckpt_port`` alone after the
-build, and ``--phases a,b`` the named ones of them.  They print no result line.
+build, and ``--phases a,b`` the named ones of them or ``remote_call``.
+They print no result line.
 """
 
 from __future__ import annotations
@@ -1688,11 +1700,18 @@ def wait_reply(phone, n_before: int, timeout: float, over) -> bool:
     return False
 
 
-def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
+def drive_sip_call(device=None, together: bool = False, on_ready=None,
+                   stt_actr=None, ports=SIP_CALL_PORTS) -> dict:
     """The bilingual LiveTranslator call through SIP, in process: the YAML
     config is read by ``InfernConfig`` and ``build_cluster`` spawns the
     daemon's actor graph (RTP -> LiveTranslator -> SIP) with the trained
-    tiny-real models (``INFERNOS_MODEL_MODE=tiny-real``) on ``device``.  A
+    tiny-real models (``INFERNOS_MODEL_MODE=tiny-real``) on ``device``.
+    ``stt_actr`` is an STT actor the app shares instead of starting its
+    own: a ``cluster.remote.RemoteActorHandle`` to a started tiny-real
+    ``STTActor`` in a peer process that also serves a :class:`PeerProbe`
+    named ``PROBE`` (:class:`Peer`); the STT numbers are then the peer's,
+    read through the probe.  ``ports``: the app's SIP port, Bob's and the
+    RTP range (``SIP_CALL_PORTS``).  A
     ``FakePhone`` (Alice) calls the SIP port; the app dials Bob, a
     ``FarEnd``; each line of ``CALL_LINES`` is spoken in turn by its
     speaker's phone as paced G.711 RTP, and what the listener hears is
@@ -1700,11 +1719,13 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
     expected text at once through their session API (both engines
     stepping one stream).  ``on_ready()`` runs once the cluster is up and
     warm, right before the first call.  Alice hangs up at the end; Bob
-    must get the BYE, and ``stop_all()`` must leave no actor thread.
+    must get the BYE, and ``stop_all()`` must leave no actor thread of the
+    call (``actor_threads_left``: those alive that it started).
     Returns, for each direction, the STT texts (the app's debug log), the
     STT results, their mean latency and the TTS first chunk (the engines'
     ``stt.audio_s``, ``stt.inf_time`` and ``tts.ttfb`` over the direction),
-    what the listener heard and the reply start; and the engines."""
+    what the listener heard and the reply start; the encodes the STT ran
+    during the call; and the engines (``stt`` None when it is remote)."""
     import tempfile
 
     from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
@@ -1716,15 +1737,20 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
     from infernos_tpu_torch.utils.platform import default_device
 
     timeout_s = 150.0 if default_device(device).type == "cpu" else 60.0
-    ports = SIP_CALL_PORTS
 
     def registry() -> dict:  # the process's metrics, named as /metrics names them
         return prom_values(render_prometheus(metrics.snapshot()))
+
+    # where the STT's numbers live: this process, or the peer serving it
+    probe = None if stt_actr is None else probe_of(stt_actr)
+    stt_registry = registry if probe is None else lambda: probe.ask_sync("registry")
 
     app_log, events = logging.getLogger("infernos_tpu_torch.apps.lt"), AppEvents()
     app_level = app_log.level
     alice = bob = None
     out = {}
+    # actor threads this call did not start (a test process may hold others')
+    before = set(threading.enumerate())
     with mock.patch.dict(os.environ, {"INFERNOS_MODEL_MODE": "tiny-real"}):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "lt.yaml")
@@ -1735,11 +1761,17 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
             app_log.addHandler(events)
             app_log.setLevel(logging.DEBUG)
             t0 = time.perf_counter()
-            handles = build_cluster(iconf, tiny=True, bind_ip="127.0.0.1", device=device)
+            handles = build_cluster(iconf, tiny=True, bind_ip="127.0.0.1",
+                                    stt_actr=stt_actr, device=device)
             out["boot_s"] = time.perf_counter() - t0
-            stt = lookup("stt:c1")._actor.engine
+            stt = None if probe is not None else lookup("stt:c1")._actor.engine
             tts = {lang: lookup(f"tts:c1:{lang}")._actor.engine for lang in ("pt", "en")}
-            stt.encode_ms.clear()
+            if stt is not None:
+                stt.encode_ms.clear()
+                encodes = lambda: len(stt.encode_ms)
+            else:
+                encodes = lambda: probe.ask_sync("encodes", stt_actr.name)
+            encodes0 = encodes()
             for eng in tts.values():
                 eng.tick_ms.clear()
                 eng.tick_frames.clear()
@@ -1757,6 +1789,7 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
             for spk, lst, s_lang, t_lang, text, seed, expect in CALL_LINES:
                 listener = phones[lst]
                 n_before, n_texts, base = len(listener.rx_packets), len(events.stt_texts), registry()
+                stt_base = base if probe is None else stt_registry()
                 seen = dict(events.counts)
                 audio = render_speech(text, seed)
                 t_send = time.monotonic()
@@ -1776,16 +1809,19 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
                 # stt.inf_time is observed by the engine and again by the
                 # app, with the same value: its mean is the results' mean
                 work = calls_work(base, registry())
+                stt_work = work if probe is None else calls_work(stt_base, stt_registry())
                 dirs.append(types.SimpleNamespace(
                     speaker=spk, listener=lst, stt_lang=s_lang, tts_lang=t_lang,
                     text=text, expect=expect, speech_s=len(audio) / 8000,
-                    stt_text=events.stt_texts[n_texts:], stt_results=work["stt_audio_s"]["count"],
-                    stt_latency_s=work["stt_inf_time"]["mean"],
+                    stt_text=events.stt_texts[n_texts:],
+                    stt_results=stt_work["stt_audio_s"]["count"],
+                    stt_latency_s=stt_work["stt_inf_time"]["mean"],
                     says=work["tts_ttfb"]["count"], first_chunk_s=work["tts_ttfb"]["mean"],
                     rx=rx_audio(listener, n_before),
                     reply_start_s=None if t_first is None else t_first - t_last))
             out["call_s"] = time.monotonic() - t_call
             out["directions"] = dirs
+            out["stt_encodes"] = encodes() - encodes0
             if together:
                 out["together"] = say_together(timeout_s)
             check(bool(bob.stack.dialogs), "sip call: Bob holds no dialog")
@@ -1802,8 +1838,8 @@ def drive_sip_call(device=None, together: bool = False, on_ready=None) -> dict:
             app_log.removeHandler(events)
             app_log.setLevel(app_level)
     time.sleep(0.5)
-    out["actor_threads_left"] = [t.name for t in threading.enumerate()
-                                 if t.name.startswith("actor:") and t.is_alive()]
+    out["actor_threads_left"] = [t.name for t in threading.enumerate() if t not in before
+                                 and t.name.startswith("actor:") and t.is_alive()]
     return out
 
 
@@ -1882,30 +1918,12 @@ def phase_sip_call(torch, attn, ts):
         check(eng.device.type == "cuda" and eng.ecfg.dtype == torch.bfloat16
               and isinstance(eng.voc_cfg, gl.GriffinLimConfig) and not ts.is_int8(eng.packed),
               f"sip call: the {lang} TTS actor is not dense bf16 on Griffin-Lim")
-    encodes = len(stt.encode_ms)
-    steps = {lang: sum(n // eng.cfg.reduction_factor for n in eng.tick_frames)
-             for lang, eng in tts.items()}
+    encodes = call["stt_encodes"]
     check(encodes > 0 and attn_launches == stt.cfg.encoder_layers * encodes,
           f"sip call: attention kernel launched {attn_launches} times for "
           f"{encodes} encodes, want {stt.cfg.encoder_layers} each")
-    check(all(steps.values()) and bf16_steps == sum(steps.values()),
-          f"sip call: bf16 step kernel launched {bf16_steps} times for {steps} steps")
-    check(int8_steps == 0, f"sip call: the int8 step kernel launched {int8_steps} times")
-    check(call["bob_got_bye"], "sip call: Bob did not get the BYE")
-    check(not call["actor_threads_left"],
-          f"sip call: actor threads left after stop_all: {call['actor_threads_left']}")
-
-    out = []
-    for d in call["directions"]:
-        hyp = transcribe(stt, active_region(d.rx), d.tts_lang)
-        out.append({"direction": f"{d.speaker}->{d.listener}",
-                    "langs": f"{d.stt_lang}->{d.tts_lang}", "text": d.text,
-                    "speech_s": d.speech_s, "stt_text": d.stt_text,
-                    "stt_results": d.stt_results, "stt_latency_s": d.stt_latency_s,
-                    "says": d.says, "tts_first_chunk_s": d.first_chunk_s,
-                    "reply_start_s": d.reply_start_s, "heard": hyp,
-                    "expected": d.expect, "word_acc": word_acc(d.expect, hyp),
-                    "rx_s": len(d.rx) / 8000})
+    steps = call_checks(call, tts, bf16_steps, int8_steps, "sip call")
+    out = heard_directions(stt, call)
     together = []
     for say in call["together"]:
         a, b = say["audio"], say["alone"]
@@ -1923,18 +1941,427 @@ def phase_sip_call(torch, attn, ts):
          tts_steps_run=steps, stt_encodes=encodes, encode_ms=stt.encode_ms,
          tts_ms_per_tick={lang: eng.tick_ms for lang, eng in tts.items()},
          bob_got_bye=call["bob_got_bye"])
-    for o in out:
-        check(o["word_acc"] >= ACC_MIN,
-              f"sip call {o['direction']}: heard {o['heard']!r}, expected "
-              f"{o['expected']!r} (word accuracy {o['word_acc']:.2f} < {ACC_MIN})")
+    check_heard(out, "sip call")
     for o in together:  # the words are information: a say is a sample
         check(o["max_abs_diff_alone"] is not None and o["peak"] > SILENT
               and o["max_abs_diff_alone"] <= TOGETHER_TOL * o["peak"],
               f"sip call: the {o['lang']} say at once differs from the say alone: {o}")
-    return attn_launches, bf16_steps
+    return attn_launches, bf16_steps, {o["direction"]: o["reply_start_s"] for o in out}
 
 
-# -- phase 10: the daemon at full width through its entry point -----------------
+def call_checks(call, tts, bf16_steps: int, int8_steps: int, what: str) -> dict:
+    """The checks :func:`drive_sip_call`'s call shares in ``sip_call`` and
+    ``remote_call``: both TTS engines stepped, one bf16 step kernel launch
+    per step and none of the int8 one, Bob got the BYE and no actor thread
+    is left.  Returns the steps per language."""
+    steps = {lang: sum(n // eng.cfg.reduction_factor for n in eng.tick_frames)
+             for lang, eng in tts.items()}
+    check(all(steps.values()) and bf16_steps == sum(steps.values()),
+          f"{what}: bf16 step kernel launched {bf16_steps} times for {steps} steps")
+    check(int8_steps == 0, f"{what}: the int8 step kernel launched {int8_steps} times")
+    check(call["bob_got_bye"], f"{what}: Bob did not get the BYE")
+    check(not call["actor_threads_left"],
+          f"{what}: actor threads left after stop_all: {call['actor_threads_left']}")
+    return steps
+
+
+def heard_directions(stt_eng, call) -> list:
+    """Each direction of :func:`drive_sip_call`'s call as the phases print
+    it, with what the listener heard transcribed by ``stt_eng`` (stepped
+    here) and its word accuracy."""
+    out = []
+    for d in call["directions"]:
+        hyp = transcribe(stt_eng, active_region(d.rx), d.tts_lang)
+        out.append({"direction": f"{d.speaker}->{d.listener}",
+                    "langs": f"{d.stt_lang}->{d.tts_lang}", "text": d.text,
+                    "speech_s": d.speech_s, "stt_text": d.stt_text,
+                    "stt_results": d.stt_results, "stt_latency_s": d.stt_latency_s,
+                    "says": d.says, "tts_first_chunk_s": d.first_chunk_s,
+                    "reply_start_s": d.reply_start_s, "heard": hyp,
+                    "expected": d.expect, "word_acc": word_acc(d.expect, hyp),
+                    "rx_s": len(d.rx) / 8000})
+    return out
+
+
+def check_heard(out: list, what: str) -> None:
+    for o in out:
+        check(o["word_acc"] >= ACC_MIN,
+              f"{what} {o['direction']}: heard {o['heard']!r}, expected "
+              f"{o['expected']!r} (word accuracy {o['word_acc']:.2f} < {ACC_MIN})")
+
+
+# -- phase 10: the Live Translator with its STT in a peer process -----------------
+
+REMOTE_CALL_PORTS = {"sip": 25079, "bob": 25089, "rtp": (40200, 40600)}
+PROBE = "probe"  # the name a peer serves its PeerProbe under
+# a peer's first line, then its ActorServer until its stdin closes; a fresh
+# interpreter, never a fork (a CUDA context does not survive one)
+PEER_SRC = (
+    "import json, os, sys, torch\n"
+    "from infernos_tpu_torch.cluster import remote\n"
+    "srv = remote.ActorServer(('127.0.0.1', 0))\n"
+    "cuda = torch.cuda.is_available()\n"
+    "print(json.dumps({'port': srv.laddr[1], 'pid': os.getpid(), 'cuda': cuda,\n"
+    "                  'count': torch.cuda.device_count(),\n"
+    "                  'kind': torch.cuda.get_device_name(0) if cuda else None}),\n"
+    "      flush=True)\n"
+    "sys.stdin.readline()\n")
+# the full-width STT of remote_call: stt_ladder's draw (encoder from
+# init_params at seed 5, decoder at HF Whisper's init from seed 6), the
+# ckpt_port engine (4 slots, tokens capped as the ramp caps them)
+REMOTE_STT_SEEDS = (5, 6)
+REMOTE_STT_REQUESTS = (2.0, 3.5, 5.25, 8.0)  # the stt phase's utterances, seconds
+REMOTE_STT_TIMEOUT_S = 120.0  # one request through either placement
+# no_speech_prob and avg_logprob of the same request, peer against this
+# process: both placements run the same kernels on the same card in the
+# same batches, and every reading was equal to the last bit (PERF.md §6,
+# remote_call)
+REMOTE_NS_TOL = 0.0
+REMOTE_LOGPROB_TOL = 0.0
+# SIGKILL of the peer to the outstanding ask's ConnectionError: the reading
+# was 0.136 s (the peer's sockets close as its CUDA context is torn down;
+# PERF.md §6, remote_call)
+REMOTE_DEAD_S = 1.0
+REMOTE_NAP_S = 60.0  # the ask left outstanding when the peer is killed
+
+
+class Peer:
+    """A peer process serving the port's ``cluster.remote.ActorServer`` on
+    127.0.0.1 (:data:`PEER_SRC`, run from this checkout with ``env`` added
+    to the environment), this process's connection to it (``heartbeat_s``
+    as ``remote.connect`` takes it) and the :class:`PeerProbe` it serves as
+    :data:`PROBE`.  ``info`` is the peer's first line: its port, pid, whether
+    it sees a card, its CUDA device count and the card's name.  ``close``
+    ends it."""
+
+    def __init__(self, env=None, heartbeat_s: float = 5.0):
+        import subprocess
+
+        from infernos_tpu_torch.cluster import remote
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        penv = dict(os.environ, **(env or {}))
+        penv["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p)
+        self.proc = subprocess.Popen([sys.executable, "-c", PEER_SRC], cwd=root,
+                                     env=penv, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+        self.conn = None
+        try:
+            line = self.proc.stdout.readline()
+            check(line.startswith("{"), f"peer: no first line ({line!r})")
+            self.info = json.loads(line)
+            self.conn = remote.connect(("127.0.0.1", self.info["port"]),
+                                       heartbeat_s=heartbeat_s)
+            self.probe = self.conn.spawn_remote("chip_smoke:PeerProbe", name=PROBE,
+                                                timeout=60.0)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        if self.conn is not None:
+            self.conn.close()
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except Exception:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def probe_of(handle):
+    """The :class:`PeerProbe` of the peer that ``handle`` (a
+    ``cluster.remote.RemoteActorHandle``) reaches."""
+    from infernos_tpu_torch.cluster import remote
+
+    return remote.RemoteActorHandle(handle._conn, PROBE)
+
+
+class PeerProbe:
+    """The actor a :class:`Peer` serves as :data:`PROBE` (spawned by its path,
+    ``chip_smoke:PeerProbe``): what the phases read of the peer's process,
+    and the full-width STT actor of ``remote_call`` started there."""
+
+    def on_start(self) -> None:
+        pass
+
+    def on_stop(self) -> None:
+        pass
+
+    def registry(self) -> dict:
+        """The peer's metrics, named as ``/metrics`` names them."""
+        from infernos_tpu_torch.utils.metrics import metrics
+        from infernos_tpu_torch.utils.metrics_export import render_prometheus
+
+        return prom_values(render_prometheus(metrics.snapshot()))
+
+    def launches(self, zero: bool = False) -> int:
+        """Kernel 1's launches in the peer (``fused_attention.launches``),
+        set to 0 after the read with ``zero``."""
+        from infernos_tpu_torch.ops import attention as attn
+
+        n = attn.fused_attention.launches
+        if zero:
+            attn.fused_attention.launches = 0
+        return n
+
+    def encodes(self, name: str) -> int:
+        """The encodes the engine of the peer's STT actor ``name`` has run."""
+        from infernos_tpu_torch.cluster.actors import lookup
+
+        return len(lookup(name)._actor.engine.encode_ms)
+
+    def modules(self) -> list:
+        """The ``jax``, reference and ``transformers`` modules the peer has
+        loaded."""
+        return sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "infernos_tpu", "transformers"))
+
+    def start_full_stt(self, name: str) -> str:
+        """:func:`full_stt_actor` in the peer; returns the actor's name."""
+        return full_stt_actor(name).name
+
+    def warm_resample(self) -> None:
+        """The peer's first 8 to 16 kHz resample (what an STT session does
+        to a phone's chunk): it imports ``scipy.signal`` and plans the
+        filter, 2.6 s on an H100 machine's host (PERF.md §6), which this
+        process has paid before its calls."""
+        from infernos_tpu_torch.audio.chunk import AudioChunk
+
+        AudioChunk(np.zeros(160, np.float32), 8000).resample(16000)
+
+    def nap(self, seconds: float) -> str:
+        time.sleep(seconds)
+        return "rested"
+
+
+def full_stt_actor(name: str):
+    """An ``STTActor`` at Whisper large-v3 width on the card, spawned and
+    started in this process as ``name`` on :data:`REMOTE_STT_SEEDS`' draw
+    (the same in every process on the card), in bf16, with
+    ``ckpt_setup``'s engine (4 slots, tokens capped as the ramp caps them);
+    started without ``INFERNOS_MODEL_MODE``, which would serve tiny-real."""
+    import torch
+
+    from infernos_tpu_torch.cluster.actors import spawn
+    from infernos_tpu_torch.cluster.model_actors import STTActor
+    from infernos_tpu_torch.models import presets
+    from infernos_tpu_torch.models import whisper as wsp
+
+    enc_seed, dec_seed = REMOTE_STT_SEEDS
+    cfg = presets.WHISPER_LARGE_V3
+    params = wsp.init_params(cfg, torch.Generator(device="cuda").manual_seed(enc_seed),
+                             "cuda", torch.bfloat16)
+    params.update(hf_init_decoder(torch, params,
+                                  torch.Generator(device="cuda").manual_seed(dec_seed)))
+    h = spawn(STTActor, tiny=False, params=params, ecfg=ckpt_setup(torch).stt, name=name)
+    with mock.patch.dict(os.environ):
+        os.environ.pop("INFERNOS_MODEL_MODE", None)
+        h.ask_sync("start", timeout=600.0)
+    return h
+
+
+def serve_utterances(handle, audios, timeout: float = REMOTE_STT_TIMEOUT_S):
+    """Each of ``audios`` (16 kHz) through one STT session of ``handle``
+    (``new_stt_session``, ``stt_session_soundin``, ``stt_session_end``),
+    each sent after the last came back, so that every placement batches
+    them alike.  Returns the results and each one's seconds from the send
+    to its ``text_cb`` here."""
+    from infernos_tpu_torch.audio.chunk import AudioChunk
+    from infernos_tpu_torch.serving.sessions import STTRequest
+
+    sid = handle.ask_sync("new_stt_session")
+    results, latency = [], []
+    for i, a in enumerate(audios):
+        got, done = [], threading.Event()
+
+        def text_cb(res, got=got, done=done):
+            got.append((time.perf_counter(), res))
+            done.set()
+
+        t0 = time.perf_counter()
+        handle.call("stt_session_soundin", sid, STTRequest(
+            chunk=AudioChunk(a, 16000), text_cb=text_cb, lang="en", mode="transcribe"))
+        check(done.wait(timeout), f"remote call: request {i} got no result within {timeout} s")
+        latency.append(got[0][0] - t0)
+        results.append(got[0][1])
+    handle.ask_sync("stt_session_end", sid)
+    return results, latency
+
+
+def phase_remote_call(torch, attn, ts, sip_reply=None):
+    """Phase ``remote_call``: the STT served from a second process on the
+    card through the multi-host plane (``cluster/remote.py``).
+
+    A :class:`Peer` (``INFERNOS_MODEL_MODE=tiny-real`` in its environment)
+    must see the card and load no ``jax`` or reference module.  Full width:
+    its probe starts :func:`full_stt_actor` there, and this process starts
+    the same; the ``stt`` phase's four utterances go through each
+    (:func:`serve_utterances`, every ``text_cb`` crossing back over the
+    socket from the peer), and the tokens must be equal, more than one
+    distinct in each decode, and ``no_speech_prob`` and ``avg_logprob``
+    within :data:`REMOTE_NS_TOL` and :data:`REMOTE_LOGPROB_TOL`; kernel 1
+    launches 32 times per encode in the peer.  The call: a tiny-real
+    ``STTActor`` in the peer is the ``stt_actr`` of :func:`drive_sip_call`
+    (the bilingual call through SIP, the TTS actors here): both directions
+    must reach 0.6 word accuracy (heard by a tiny-real STT engine here);
+    kernel 1 launches once per encoder layer and encode in the peer and
+    not here, kernel 2 once per step here.  Death: the peer gets SIGKILL with
+    an ask outstanding, which must fail with ``ConnectionError`` within
+    :data:`REMOTE_DEAD_S`; a new call on the STT handle must raise at once
+    and ``stop_all()`` leave no actor thread.  ``sip_reply`` is the
+    ``sip_call`` phase's reply start per direction, printed beside this
+    call's.  Returns the launches of kernel 1 (in the peer, the full-width
+    requests' and the call's) and of kernel 2 (here, the call's)."""
+    from infernos_tpu_torch.cluster import remote
+    from infernos_tpu_torch.cluster.actors import stop_all
+    from infernos_tpu_torch.models import presets, tiny_real
+    from infernos_tpu_torch.serving import stt_engine as stt
+    from infernos_tpu_torch.utils.platform import card_info
+
+    t_phase = time.perf_counter()
+    out = {"card": card_info()}
+    t0 = time.perf_counter()
+    peer = Peer({"INFERNOS_MODEL_MODE": "tiny-real"})
+    try:
+        out["peer"] = peer.info
+        out["peer_start_s"] = time.perf_counter() - t0
+        check(peer.info["cuda"] and peer.info["count"] >= 1,
+              f"remote call: the peer sees no card: {peer.info}")
+        loaded = peer.probe.ask_sync("modules")
+        check(not loaded, f"remote call: the peer loaded {loaded}")
+
+        # full width: the same draw served from the peer and from here
+        rng = np.random.default_rng(0)
+        audios = [synth_audio(rng, s) for s in REMOTE_STT_REQUESTS]
+        t0 = time.perf_counter()
+        far = remote.RemoteActorHandle(
+            peer.conn, peer.probe.ask_sync("start_full_stt", "stt:full", timeout=900.0))
+        out["full_start_peer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        near = full_stt_actor("stt:full:here")
+        out["full_start_here_s"] = time.perf_counter() - t0
+        enc0 = peer.probe.ask_sync("encodes", far.name)
+        peer.probe.ask_sync("launches", True)  # the remote path starts here
+        far_res, far_lat = serve_utterances(far, audios)
+        full_attn = peer.probe.ask_sync("launches")
+        full_encodes = peer.probe.ask_sync("encodes", far.name) - enc0
+        near_res, near_lat = serve_utterances(near, audios)
+        near.stop()
+        far.stop()
+        del near
+        torch.cuda.empty_cache()
+        reqs = []
+        for i, (a, f, n) in enumerate(zip(audios, far_res, near_res)):
+            reqs.append({"audio_s": len(a) / 16000, "tokens": list(f.tokens),
+                         "tokens_here": list(n.tokens), "distinct": len(set(f.tokens)),
+                         "no_speech_prob": [f.no_speech_prob, n.no_speech_prob],
+                         "avg_logprob": [f.avg_logprob, n.avg_logprob],
+                         "ns_abs_diff": abs(f.no_speech_prob - n.no_speech_prob),
+                         "logprob_abs_diff": abs(f.avg_logprob - n.avg_logprob),
+                         "latency_s": [far_lat[i], near_lat[i]],
+                         "latency_added_s": far_lat[i] - near_lat[i],
+                         "inf_time_s": [f.inf_time, n.inf_time],
+                         "wire_s": [far_lat[i] - f.inf_time, near_lat[i] - n.inf_time]})
+        out["full_width"] = {"model": "whisper-large-v3 (stt_ladder draw, bf16)",
+                             "requests": reqs, "encodes": full_encodes,
+                             "attention_launches": full_attn}
+        emit("remote_call_full", **out)
+
+        # the call: the tiny-real STT in the peer, everything else here
+        t0 = time.perf_counter()
+        far = peer.conn.spawn_remote("infernos_tpu_torch.cluster.model_actors:STTActor",
+                                     True, name="stt:peer", timeout=60.0)
+        far.ask_sync("start", timeout=600.0)
+        out["tiny_start_peer_s"] = time.perf_counter() - t0
+        peer.probe.ask_sync("warm_resample")
+        enc0 = peer.probe.ask_sync("encodes", far.name)
+
+        def zero_counts():  # the main path starts here, the cluster warm
+            attn.fused_attention.launches = 0
+            ts.fused_decode_step.launches = 0
+            ts.fused_decode_step.launches_int8 = 0
+            peer.probe.ask_sync("launches", True)
+
+        call = drive_sip_call(on_ready=zero_counts, stt_actr=far, ports=REMOTE_CALL_PORTS)
+        torch.cuda.synchronize()
+        here_attn = attn.fused_attention.launches  # read right after it
+        bf16_steps = ts.fused_decode_step.launches
+        int8_steps = ts.fused_decode_step.launches_int8
+        call_attn = peer.probe.ask_sync("launches")
+        encodes = peer.probe.ask_sync("encodes", far.name) - enc0
+        check(call["stt"] is None and call["stt_encodes"] == encodes,
+              "remote call: the STT did not run in the peer")
+        sp, scfg, stok, secfg = tiny_real.load_tiny_stt("cuda")
+        check(encodes > 0 and call_attn == scfg.encoder_layers * encodes and here_attn == 0,
+              f"remote call: attention kernel launched {call_attn} times in the peer "
+              f"and {here_attn} here for {encodes} encodes in the peer, want "
+              f"{scfg.encoder_layers} each")
+        tts = call["tts"]
+        steps = call_checks(call, tts, bf16_steps, int8_steps, "remote call")
+        heard_by = stt.STTEngine(sp, scfg, secfg, detokenize=stok.detokenize)
+        dirs = heard_directions(heard_by, call)
+        for d in dirs:
+            d["sip_call_reply_start_s"] = (sip_reply or {}).get(d["direction"])
+
+        # death: SIGKILL with an ask outstanding
+        nap = peer.probe.ask("nap", REMOTE_NAP_S)
+        t0 = time.monotonic()
+        peer.proc.kill()  # SIGKILL
+        try:
+            nap.result(timeout=REMOTE_NAP_S)
+            err = None
+        except Exception as e:
+            err = e
+        dead_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        try:
+            far.call("stt_session_end", None)
+            call_err = None
+        except Exception as e:
+            call_err = e
+        call_raise_s = time.monotonic() - t0
+        peer.proc.wait(timeout=30)
+        stop_all()
+        time.sleep(0.5)
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith("actor:") and t.is_alive()]
+    finally:
+        peer.close()
+    emit("remote_call", card=out["card"], peer=out["peer"], model="tiny-real (bf16, Griffin-Lim)",
+         peer_start_s=out["peer_start_s"], tiny_start_peer_s=out["tiny_start_peer_s"],
+         boot_s=call["boot_s"], call_s=call["call_s"], directions=dirs,
+         word_acc_min=ACC_MIN, peer_attention_launches=call_attn,
+         here_attention_launches=here_attn, bf16_step_launches=bf16_steps,
+         tts_steps_run=steps, stt_encodes_in_peer=encodes,
+         full_width_attention_launches=full_attn,
+         death={"error": repr(err), "seconds": dead_s, "bound_s": REMOTE_DEAD_S,
+                "call_after": repr(call_err), "call_raise_s": call_raise_s,
+                "actor_threads_left": left},
+         phase_s=time.perf_counter() - t_phase)
+    for i, r in enumerate(reqs):
+        check(r["tokens"] == r["tokens_here"],
+              f"remote call: request {i} tokens {r['tokens']} from the peer, "
+              f"{r['tokens_here']} here")
+        check(r["distinct"] > 1, f"remote call: request {i} decodes one token: {r['tokens']}")
+        check(r["ns_abs_diff"] <= REMOTE_NS_TOL and r["logprob_abs_diff"] <= REMOTE_LOGPROB_TOL,
+              f"remote call: request {i} no_speech_prob / avg_logprob differ: {r}")
+    layers = presets.WHISPER_LARGE_V3.encoder_layers
+    check(full_encodes == len(audios) and full_attn == layers * full_encodes,
+          f"remote call: kernel 1 launched {full_attn} times in the peer for "
+          f"{full_encodes} encodes, want {layers} each")
+    check_heard(dirs, "remote call")
+    check(isinstance(err, ConnectionError) and dead_s <= REMOTE_DEAD_S,
+          f"remote call: the outstanding ask gave {err!r} {dead_s:.3f} s after SIGKILL, "
+          f"want ConnectionError within {REMOTE_DEAD_S} s")
+    check(isinstance(call_err, ConnectionError) and call_raise_s < 0.1,
+          f"remote call: a call on the dead link gave {call_err!r} in {call_raise_s:.3f} s")
+    check(not left, f"remote call: actor threads left after stop_all: {left}")
+    return full_attn + call_attn, bf16_steps
+
+
+# -- phase 11: the daemon at full width through its entry point -----------------
 
 DAEMON_PORTS = {"sip": 25271, "bob": 25281, "metrics": 25291, "rtp": (36500, 36900)}
 DAEMON_BOOT_S = 600.0  # the daemon's own bound to answer OPTIONS and /metrics
@@ -2231,7 +2658,7 @@ def phase_daemon(torch):
     return calls["attention"], calls["bf16_step"]
 
 
-# -- phase 11: the LLM engine at Qwen2.5-7B width, int8 weights; phase 12 -----
+# -- phase 12: the LLM engine at Qwen2.5-7B width, int8 weights; phase 13 -----
 
 LLM_SEED = 0
 # (prompt bucket, characters of user text): four chat requests, one short
@@ -2483,7 +2910,7 @@ def phase_llm_tiny(torch):
     check(not flipped, f"llm_tiny: bf16 replies differ from the policy: {flipped}")
 
 
-# -- phase 13: the AI attendant through SIP and the actors, in process --------
+# -- phase 14: the AI attendant through SIP and the actors, in process --------
 
 AIA_CALL_PORTS = {"sip": 25076, "rtp": (37000, 37400)}
 # Alice's number: the app puts "<incoming call from 445572 (445572)>" in the
@@ -2752,7 +3179,7 @@ def phase_aia_call(torch, attn, ts):
     return attn_launches, bf16_steps
 
 
-# -- phase 14: the daemon at full width with the AI attendant -----------------
+# -- phase 15: the daemon at full width with the AI attendant -----------------
 
 DAEMON_AIA_PORTS = {"sip": 25272, "metrics": 25292, "rtp": (38000, 38400)}
 DAEMON_AIA_SAYINGS = (("please help now", 25), ("want help today", 26))
@@ -2858,7 +3285,7 @@ def phase_daemon_aia(torch):
     return calls["attention"], calls["bf16_step"]
 
 
-# -- phases 15-18: the benches, each its own entry in a subprocess ----------
+# -- phases 16-19: the benches, each its own entry in a subprocess ----------
 
 # runs ``python -m <module> <args>`` as the bench's own main; counts the
 # kernels' launches from 0 and keeps every STT and TTS engine made, and
@@ -3133,7 +3560,7 @@ def phase_loopback(torch):
     return calls["attention"], calls["bf16_step"]
 
 
-# -- phases 19-26: the quality ladder, the engine and attendant benches, the
+# -- phases 20-27: the quality ladder, the engine and attendant benches, the
 # echo loop and a profiled ramp level ------------------------------------------
 
 LADDER_REQUESTS = (2.0, 3.5, 5.25, 8.0)  # seconds of audio per request
@@ -3490,11 +3917,17 @@ RAMP_PROFILE_HZ = "200"
 # a turn SLA no turn reaches: the profiled level runs once, not again on a
 # miss as lt_ramp's does (that retry measures the ramp, not the host)
 RAMP_PROFILE_SLA_S = "600"
+# one turn per call (lt_ramp runs two), to make room for remote_call: the
+# level's two calls are the same, profiled over one turn each (on an H100:
+# the phase 69.6 s and its level 32.3 s at two turns; 35.4-48.2 s and
+# 4.9-6.3 s at one; PERF.md §6)
+RAMP_PROFILE_TURNS = "1"
 
 
 def phase_ramp_profile(torch):
-    """Phase ``ramp_profile``: ``ltbench --ramp --full --turns 2 --levels
-    2 --sla 600`` (as ``lt_ramp`` runs it, but the level runs once) with
+    """Phase ``ramp_profile``: ``ltbench --ramp --full --turns 1 --levels
+    2 --sla 600`` (as ``lt_ramp`` runs it, but the level runs once, one
+    turn per call) with
     ``INFERNOS_PYSAMPLER`` set: the host profile of a two-call level.
     Checks: one level, both calls answered; the dump exists and holds
     samples from the level only (the sampler is reset before the ladder:
@@ -3509,7 +3942,7 @@ def phase_ramp_profile(torch):
     torch.cuda.empty_cache()
     dump = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_prof_"), "prof.json")
     r = run_bench("ramp_profile", "infernos_tpu_torch.bench.ltbench",
-                  ["--ramp", "--full", "--turns", "2", "--levels", "2",
+                  ["--ramp", "--full", "--turns", RAMP_PROFILE_TURNS, "--levels", "2",
                    "--sla", RAMP_PROFILE_SLA_S], timeout=600,
                   env_extra={**LT_RAMP_ENV, "INFERNOS_PYSAMPLER": dump,
                              "INFERNOS_PYSAMPLER_HZ": RAMP_PROFILE_HZ})
@@ -3541,7 +3974,7 @@ def phase_ramp_profile(torch):
     return calls["attention"], calls["bf16_step"]
 
 
-# -- phase 27: HF-layout weights through port_from_hf, a checkpoint and the
+# -- phase 28: HF-layout weights through port_from_hf, a checkpoint and the
 # actors --------------------------------------------------------------------
 
 # the HF-layout weights' generator.  Many draws at HF's init give a Whisper
@@ -4277,6 +4710,16 @@ BENCH_PHASES = {
 }
 
 
+def _remote_call_alone(torch, attn):
+    from infernos_tpu_torch.ops import tts_step as ts
+
+    return phase_remote_call(torch, attn, ts)
+
+
+# the phases ``--phases`` runs alone after the build
+ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone}
+
+
 def main(argv=None) -> int:
     global CKPT_SEED
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4288,9 +4731,9 @@ def main(argv=None) -> int:
                          "stt_ladder, ckpt_port) alone after the build (prints no "
                          "result line)")
     ap.add_argument("--phases", metavar="NAME,...",
-                    help="run only these of the bench phases, stt_ladder and ckpt_port, "
-                         "in the order given, after the build (prints no "
-                         "result line): " + ", ".join(BENCH_PHASES))
+                    help="run only these of the bench phases, stt_ladder, ckpt_port "
+                         "and remote_call, in the order given, after the build "
+                         "(prints no result line): " + ", ".join(ALONE_PHASES))
     ap.add_argument("--ckpt-seed", type=int, default=CKPT_SEED,
                     help="the generator seed of ckpt_port's HF-layout weights "
                          f"(default {CKPT_SEED})")
@@ -4332,9 +4775,9 @@ def main(argv=None) -> int:
 
     if args.only == "benches" or args.phases:
         names = args.phases.split(",") if args.phases else list(BENCH_PHASES)
-        check(set(names) <= set(BENCH_PHASES), f"--phases: unknown {names}")
+        check(set(names) <= set(ALONE_PHASES), f"--phases: unknown {names}")
         for name in names:
-            BENCH_PHASES[name](torch, attn)
+            ALONE_PHASES[name](torch, attn)
         return 0
     kernels = [phase_attention(torch, attn)]
     if args.only == "attention":
@@ -4356,7 +4799,8 @@ def main(argv=None) -> int:
           "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
     call_attn, call_bf16 = phase_rtp_call(torch, attn, ts)
-    sip_attn, sip_bf16 = phase_sip_call(torch, attn, ts)
+    sip_attn, sip_bf16, sip_reply = phase_sip_call(torch, attn, ts)
+    rem_attn, rem_bf16 = phase_remote_call(torch, attn, ts, sip_reply)
     dmn_attn, dmn_bf16 = phase_daemon(torch)
     phase_llm(torch)
     phase_llm_tiny(torch)
@@ -4379,9 +4823,11 @@ def main(argv=None) -> int:
     # each path was driven with the counts at 0 before it and read after it
     # (the daemons' calls and the LT benches' levels in their own
     # processes, apart from their warm-ups; the paced TTS and loopback
-    # benches' whole runs in theirs)
+    # benches' whole runs in theirs; remote_call's kernel-1 launches in
+    # its peer)
     by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
-               "sip_call": sip_attn, "daemon": dmn_attn, "aia_call": aia_attn,
+               "sip_call": sip_attn, "remote_call": rem_attn, "daemon": dmn_attn,
+               "aia_call": aia_attn,
                "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
                "loopback": loop_attn, "stt_ladder": ladder_attn, "sttbench": sttb_attn,
                "aia_bench": aiab_attn, "echo": echo_attn, "ramp_profile": prof_attn,
@@ -4389,7 +4835,8 @@ def main(argv=None) -> int:
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
-               "sip_call": sip_bf16, "daemon": dmn_bf16, "aia_call": aia_bf16,
+               "sip_call": sip_bf16, "remote_call": rem_bf16, "daemon": dmn_bf16,
+               "aia_call": aia_bf16,
                "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,
                "lt_ramp": ramp_bf16, "loopback": loop_bf16, "ttsbench": ttsb_bf16,
                "ttsprobe": probe_bf16, "aia_bench": aiab_bf16, "echo": echo_bf16,

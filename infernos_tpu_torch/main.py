@@ -48,7 +48,10 @@ def build_cluster(iconf: InfernConfig, tiny: bool = False,
     """Spawn and wire the full actor graph from a validated config.
 
     ``stt_actr``: pre-existing STT actor handle to share instead of
-    starting one per app.  ``device``: where the models and the VAD run;
+    starting one per app -- typically a ``cluster.remote.RemoteActorHandle``
+    placing the STT leg in another process or on another host (the
+    reference's Ray cross-host placement, SURVEY.md section 2.9), started
+    there on its own card.  ``device``: where the models and the VAD run;
     None means the card (``utils.platform.default_device``), which raises
     without one before anything is spawned.
     """

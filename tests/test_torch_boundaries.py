@@ -33,7 +33,12 @@
   (``utils.pysampler``) and the STT quality ladder load no ``jax``,
   reference or ``tools`` module either; each bench ``main`` demands a card
   unless ``INFERNOS_DEVICE=cpu`` asks for the CPU and refuses, on a card,
-  the tiny dims the kernels do not take.
+  the tiny dims the kernels do not take;
+- the multi-host plane (``cluster/remote.py``) imports the standard library,
+  ``torch`` and the port only, and the peers' sources import no ``jax``,
+  reference or ``transformers`` module; a peer without a card refuses to
+  start a model actor unless ``device="cpu"`` is asked, and the asker sees
+  the error; a peer serving a tiny LT call's STT loads none of them.
 """
 
 import ast
@@ -82,7 +87,7 @@ def test_every_submodule_imports_without_jax_or_reference():
               "media.jitter", "media.native", "media.udp", "media.rtcp",
               "media.pacer", "media.cpacer", "media.ingest", "media.endpoint",
               "audio.speechlang", "sip.message", "sip.sdp", "sip.stack", "sip.ua",
-              "sip.registration", "sip.agent", "cluster.actors", "cluster.rtp_actor",
+              "sip.registration", "sip.agent", "cluster.actors", "cluster.rtp_actor", "cluster.remote",
               "cluster.model_actors", "config.config", "config.validator",
               "apps.live_translator.session", "apps.live_translator.actor",
               "models.presets", "utils.metrics_export", "bench.phone", "main",
@@ -702,3 +707,104 @@ def test_flagship_demands_a_card_unless_cpu_is_asked():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert "{" not in proc.stdout
+
+
+def _import_roots(src: str):
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield "." if node.level else (node.module or "").split(".")[0]
+
+
+def test_remote_plane_and_its_peers_import_no_jax_reference_or_transformers():
+    """``cluster/remote.py`` imports the standard library, ``torch`` and the
+    port only; the peer sources of ``chip_smoke.py`` (``PEER_SRC``) and of
+    the remote tests import no ``jax``, reference or ``transformers``
+    module, and neither do the modules their peers import actors from."""
+    import chip_smoke as cs
+    import test_torch_remote
+
+    roots = set(_import_roots((PKG / "cluster" / "remote.py").read_text()))
+    assert roots <= set(sys.stdlib_module_names) | {"torch", "."}, roots
+    banned = {"jax", "jaxlib", "infernos_tpu", "transformers"}
+    for src in (cs.PEER_SRC, test_torch_remote.CHILD_SRC,
+                Path(test_torch_remote.__file__).read_text()):
+        roots = set(_import_roots(src))
+        assert roots & banned == set(), roots
+        assert "infernos_tpu_torch" in roots
+
+
+REMOTE_BOUNDARY_PORTS = {"sip": 25099, "bob": 25084, "rtp": (40960, 40998)}
+
+
+@pytest.fixture(scope="module")
+def cpu_peer():
+    """A peer of ``chip_smoke.Peer`` on this host, which has no card."""
+    import chip_smoke as cs
+
+    peer = cs.Peer({"OMP_NUM_THREADS": "1"}, heartbeat_s=0)
+    assert not peer.info["cuda"]
+    yield peer
+    peer.close()
+
+
+@pytest.mark.parametrize("cls", ["STTActor", "TTSActor", "LLMActor"])
+def test_peer_without_a_card_refuses_model_actors_unless_cpu_is_asked(cpu_peer, cls):
+    """A model actor spawned in a peer without a card and started with no
+    ``device`` raises there, and the asker's ``ask_sync("start")`` raises
+    the ``default_device`` error, relayed: the peer never serves on the CPU
+    unless ``device="cpu"`` is asked."""
+    path = f"infernos_tpu_torch.cluster.model_actors:{cls}"
+    h = cpu_peer.conn.spawn_remote(path, True, name=f"nocard:{cls}", timeout=60.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        h.ask_sync("start", timeout=120.0)
+    assert cpu_peer.probe.ask_sync("modules") == []
+    h.stop()
+
+
+def test_remote_peer_serving_a_tiny_lt_call_loads_no_jax_or_reference(cpu_peer, tmp_path):
+    """A LiveTranslator cluster on the CPU here (tiny random models, SIP
+    25099 and 25084, RTP 40960-40998, used by no other test file) whose STT
+    actor lives in the peer, started there with ``device="cpu"``: a call
+    from a ``FakePhone`` reaches the peer's STT, and the peer has loaded no
+    ``jax``, reference or ``transformers`` module."""
+    import time
+
+    from infernos_tpu_torch.bench.phone import FakePhone, FarEnd
+    from infernos_tpu_torch.cluster.actors import stop_all
+    from infernos_tpu_torch.config import InfernConfig
+    from infernos_tpu_torch.main import build_cluster
+
+    import chip_smoke as cs
+    from test_torch_e2e_calls import _speechy
+
+    ports = REMOTE_BOUNDARY_PORTS
+    stt = cpu_peer.conn.spawn_remote("infernos_tpu_torch.cluster.model_actors:STTActor",
+                                     True, name="stt:lt-boundary", device="cpu",
+                                     timeout=60.0)
+    stt.ask_sync("start", timeout=600.0)
+    cfg = tmp_path / "lt.yaml"
+    cfg.write_text(cs.lt_config(ports["sip"], ports["bob"], ports["rtp"]))
+    bob, alice = FarEnd(port=ports["bob"]), None
+    try:
+        iconf = InfernConfig(str(cfg))
+        build_cluster(iconf, tiny=True, bind_ip="127.0.0.1", stt_actr=stt, device="cpu")
+        alice = FakePhone()
+        alice.call(iconf.sip_conf.bind)
+        assert alice.uac.connected and bob.answered.wait(60.0)
+        alice.stream_bg(_speechy(1.2, seed=7), then_silence=True)
+        deadline = time.monotonic() + 240.0
+        while (cpu_peer.probe.ask_sync("registry").get("infernos_stt_audio_s_count", 0) < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        alice.stop_streaming()
+        assert cpu_peer.probe.ask_sync("encodes", "stt:lt-boundary") >= 1
+        alice.hangup()
+    finally:
+        if alice:
+            alice.close()
+        bob.close()
+        stop_all()
+        stt.stop()
+    assert cpu_peer.probe.ask_sync("modules") == []
