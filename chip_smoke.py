@@ -64,7 +64,7 @@ Phases, each printing one JSON line:
 12. llm     -- the LLM engine as the full ``LLMActor`` starts it
                (Qwen2.5-7B dims, zeros made in the int8 layout on the card,
                random embedding and readout, bf16) serving four chat
-               requests, one per prompt bucket and one short: each
+               requests of 64 tokens, one per prompt bucket and one short: each
                request's tokens in the batch equal a run of it alone, the
                peak memory stays under the dense bf16 weights; prefill and
                decode times beside the decode step's bound;
@@ -89,7 +89,7 @@ Phases, each printing one JSON line:
                speech through SIP, VAD, the tiny STT, T2T and the tiny TTS;
                4 answered, 8 turns measured, none failed;
 18. lt_ramp -- ``python -m infernos_tpu_torch.bench.ltbench --ramp --full
-               --turns 2`` at full width on the ladder 1, 2, 4 calls:
+               --turns 1`` at full width on the ladder 1, 2 calls:
                the north star's ``lt_calls_per_chip``, each level's turn
                latency, the engines' stage metrics;
 19. loopback -- ``python -m infernos_tpu_torch.bench.loopback --speakers 4
@@ -112,15 +112,27 @@ Phases, each printing one JSON line:
 24. llmbench -- ``python -m infernos_tpu_torch.bench.llmbench --dims 7b``
                with K 8 and with ``--spec``: every request finishes;
                tokens/s and generation latency;
-25. aia_bench -- ``python -m infernos_tpu_torch.bench.aiabench --tiny-real
+25. parallel -- the parallel plane over rank processes on the card
+               (``infernos_tpu_torch/parallel``): ``dryrun_multichip(2)``
+               (two ranks over gloo; each rank's TTS and STT engines launch
+               kernels 2 and 1, counted in the rank); Qwen2.5-14B at full
+               width, 4 of 48 layers, int8, tensor-parallel over 4 ranks
+               (gloo), every logits row within 4e-2 (relative L2) of the
+               unsharded engine's, and the prefill rows no further from
+               fp32 activations on the same int8 tree than 1.25 times the
+               unsharded engine's rows are; each rank's
+               parameter bytes equal to the budget's;
+               the same engine code at tp 1 in a one-rank NCCL group, its
+               tokens equal to the unsharded engine's;
+26. aia_bench -- ``python -m infernos_tpu_torch.bench.aiabench --tiny-real
                --calls 2 --turns 2``: 2 answered, every turn replied to
                but those the tiny LLM answers with ``<nothingtosay>``;
-26. echo    -- ``python -m infernos_tpu_torch.bench.echo --tiny-real
+27. echo    -- ``python -m infernos_tpu_torch.bench.echo --tiny-real
                --utterances 2``: an echo per utterance over RTP, no SIP;
-27. ramp_profile -- ``ltbench --ramp --full --turns 1 --levels 2`` with
+28. ramp_profile -- ``ltbench --ramp --full --turns 1 --levels 2`` with
                ``INFERNOS_PYSAMPLER``: the host profile of a two-call
                level (on-CPU and waiting leaves, threads);
-28. ckpt_port -- HF-layout state dicts of Whisper large-v3, SpeechT5 and
+29. ckpt_port -- HF-layout state dicts of Whisper large-v3, SpeechT5 and
                HiFi-GAN built on the card at HF's init, converted by each
                ``port_from_hf`` (every leaf bit for bit, no key unread),
                saved in bf16 by ``checkpoint.save``, loaded cold
@@ -128,7 +140,7 @@ Phases, each printing one JSON line:
                utterance, tokens against ``whisper.decode_full``) and
                ``TTSActor`` (one say of 64 steps, each step against
                ``speecht5.decode_full``, finite audio);
-29. launches -- the kernels and copies the card runs for one
+30. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
@@ -149,13 +161,15 @@ kernel's launch count is set to 0 right before the path that runs it and
 read right after (in ``daemon`` and ``daemon_aia``, by the daemon's
 process, reported on SIGUSR2 after its warm-ups and after the calls; in
 the bench phases, by the bench's process under ``BENCH_PRELUDE``; in
-``remote_call``, kernel 1's by the peer, asked through its probe).  The
+``remote_call``, kernel 1's by the peer, asked through its probe; in
+``parallel``, kernels 1 and 2 by each rank process of the dry run).  The
 bench phases hold checks, not SLAs: their latencies and rates are printed
 as measurements.
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs); ``--only benches``
 runs the bench phases, ``stt_ladder`` and ``ckpt_port`` alone after the
-build, and ``--phases a,b`` the named ones of them or ``remote_call``.
+build, and ``--phases a,b`` the named ones of them, ``remote_call`` or
+``parallel``.
 They print no result line.
 """
 
@@ -2666,6 +2680,9 @@ LLM_SEED = 0
 # are bytes, so a templated prompt is its user text's length plus 88
 LLM_REQUESTS = ((128, 5), (128, 36), (256, 150), (512, 400))
 LLM_TIMED = 5  # dispatches timed on the card
+# tokens per request (the actor's engine allows 256; random weights never
+# stop): a depth cut to fit the script's time, the batching check unchanged
+LLM_NEW = 64
 
 
 def llm_prompt(rng, n_chars: int) -> str:
@@ -2680,16 +2697,17 @@ def llm_prompt(rng, n_chars: int) -> str:
                                 {"role": "user", "content": " ".join(words)[:n_chars]}])
 
 
-def run_requests(eng, prompts, tok) -> dict:
-    """``prompts`` submitted together to ``eng`` and stepped to the end:
-    each request's token ids and its seconds from submit to final, the
+def run_requests(eng, prompts, tok, max_new=None) -> dict:
+    """``prompts`` submitted together to ``eng`` (each for ``max_new``
+    tokens, or the engine's own budget) and stepped to the end: each
+    request's token ids and its seconds from submit to final, the
     dispatches, the wall seconds and the tokens emitted."""
     from infernos_tpu_torch.serving.llm_engine import LLMRequest
 
     t_end = [None] * len(prompts)
     t0 = time.perf_counter()
     reqs = [LLMRequest(tok(p), lambda s, fin, i=i: fin and t_end.__setitem__(
-        i, time.perf_counter())) for i, p in enumerate(prompts)]
+        i, time.perf_counter()), max_new_tokens=max_new) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     streams, steps = {}, 0
@@ -2737,7 +2755,8 @@ def phase_llm(torch):
     """Phase ``llm``: the LLM engine as the full ``LLMActor`` starts it --
     Qwen2.5-7B dims in the int8 layout made on the card (``qwen_int8_init``:
     no dense copy), bf16, the actor's engine (``LLM_FULL_ENGINE``: 4 slots,
-    buckets 128/256/512, 1024 tokens) -- serving four chat requests at once.
+    buckets 128/256/512, 1024 tokens) -- serving four chat requests at once,
+    ``LLM_NEW`` tokens each.
     The actor's zero layers are filled from a seed here
     (:func:`seeded_layers`).  Checks each request's token ids equal a run of
     that request alone (batching invariance) and that the phase's peak
@@ -2786,10 +2805,10 @@ def phase_llm(torch):
           f"fall in buckets {buckets}")
     h0 = metrics.hists.get("llm.gen_time")
     n0, s0 = (h0.count, h0.total) if h0 else (0, 0.0)
-    together = run_requests(eng, prompts, tok)
+    together = run_requests(eng, prompts, tok, LLM_NEW)
     h = metrics.hists["llm.gen_time"]
     gen_obs = {"count": h.count - n0, "mean_s": (h.total - s0) / max(1, h.count - n0)}
-    alone = [run_requests(eng, [p], tok)["tokens"][0] for p in prompts]
+    alone = [run_requests(eng, [p], tok, LLM_NEW)["tokens"][0] for p in prompts]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base_mem
 
@@ -3489,14 +3508,15 @@ def phase_lt_bench_tiny(torch):
     return calls["attention"], calls["bf16_step"]
 
 
-LT_RAMP_LEVELS = "1,2,4"  # within half the script's time limit
+LT_RAMP_LEVELS = "1,2"  # level 4 never passed (lt_calls_per_chip 1-2); its tries cost most
+LT_RAMP_TURNS = 1  # turns per call (the flagship's 2): a depth cut to fit the script's time
 LT_RAMP_ENV = {"INFERNOS_STT_MAX_NEW": "24", "INFERNOS_TTS_SLOTS": "32",
                "INFERNOS_STT_SLOTS": "24"}  # the flagship's defaults
 
 
 def phase_lt_ramp(torch):
     """Phase ``lt_ramp``: ``python -m infernos_tpu_torch.bench.ltbench
-    --ramp --full --turns 2`` at full width (Whisper-large-v3 tiered STT,
+    --ramp --full --turns 1`` at full width (Whisper-large-v3 tiered STT,
     24 + 8 slots; two SpeechT5 + HiFi-GAN + AmendNet TTS engines of 32
     slots; bf16, zero weights; ``INFERNOS_STT_MAX_NEW`` 24, as the flagship
     runs it) on the ladder ``LT_RAMP_LEVELS``.  Checks, not SLAs: the child
@@ -3510,7 +3530,8 @@ def phase_lt_ramp(torch):
 
     torch.cuda.empty_cache()
     r = run_bench("lt_ramp", "infernos_tpu_torch.bench.ltbench",
-                  ["--ramp", "--full", "--turns", "2", "--levels", LT_RAMP_LEVELS],
+                  ["--ramp", "--full", "--turns", str(LT_RAMP_TURNS),
+                   "--levels", LT_RAMP_LEVELS],
                   timeout=600, env_extra=LT_RAMP_ENV)
     ramp = [ln for ln in r.lines if ln.get("metric") == "lt_calls_per_chip"]
     res = ramp[-1] if ramp else {}
@@ -3523,8 +3544,9 @@ def phase_lt_ramp(torch):
          engine_metrics=snapshots, json_lines=len(ramp), launches=calls)
     check(r.rc == 0, f"lt_ramp: ltbench exited {r.rc}")
     check(levels and levels[0]["n_calls"] == 1 and levels[0]["answered"] == 1
-          and levels[0]["turns_measured"] == 2 and levels[0]["failures"] == 0,
-          f"lt_ramp: the first level did not answer its call and measure both turns: {levels[:1]}")
+          and levels[0]["turns_measured"] == LT_RAMP_TURNS and levels[0]["failures"] == 0,
+          f"lt_ramp: the first level did not answer its call and measure every turn: "
+          f"{levels[:1]}")
     # one line after each level, one before each retry, and the result
     check(len(ramp) >= len(levels) + 1,
           f"lt_ramp: {len(ramp)} JSON lines for {len(levels)} levels")
@@ -3827,6 +3849,382 @@ def phase_llmbench(torch):
                      "unit": res["unit"], **d}
     emit("llmbench", card=card_info(), **out)
 
+
+# -- phase parallel: the dry run and Qwen tensor parallelism over ranks -------
+
+TP_RANKS = 4
+TP_LAYERS = 4  # of Qwen2.5-14B's 48: full width, depth cut to fit the phase's time
+TP_SEED = 14
+TP_PROMPTS = (64, 128)  # prompt tokens of the two requests, one bucket each
+TP_NEW = 16
+# relative L2 error of a logits row, tp 4 against unsharded (bf16
+# activations, int8 weights).  Set at 2e-2 before the first run, which read
+# 2.11e-2 to 2.33e-2 on every row, prefills and decode steps alike: an even
+# level, not a drift.  It is the bf16 path's own rounding at this width:
+# against fp32 activations on the same int8 tree the unsharded run's
+# prefill rows are 3.46e-2 and 3.95e-2 off, the tp run's 3.44e-2 and
+# 4.13e-2 (the second run).  So the bound is that floor, and the tp run
+# must also be no further from fp32 than TP_FP32_RATIO times the
+# unsharded run's distance, row by row.
+TP_REL_TOL = 4e-2
+TP_FP32_RATIO = 1.25
+TP_TIMED = 5  # eager decode dispatches timed per rank
+HF_QWEN_STD = 0.02  # HF Qwen2Config.initializer_range
+
+
+def qwen14b_cfg():
+    import dataclasses
+
+    from infernos_tpu_torch.models import presets
+
+    return dataclasses.replace(presets.QWEN25_14B, num_layers=TP_LAYERS)
+
+
+def qwen14b_tree(torch, cfg, device):
+    """Qwen2.5-14B's tree at ``cfg``'s depth at HF's init (linears and
+    embeddings N(0, 0.02), zero biases, RMSNorm gains 1), bf16, drawn on
+    ``device`` from ``TP_SEED`` (the same values in every process on one
+    kind of card), then quantized whole by ``quantize_params``."""
+    from infernos_tpu_torch.models import qwen, quant
+
+    g = torch.Generator(device=device).manual_seed(TP_SEED)
+
+    def make(path, x):
+        if path[-1] == "g":
+            return torch.ones(x.shape, dtype=x.dtype, device=device)
+        if path[-1] == "b":
+            return torch.zeros(x.shape, dtype=x.dtype, device=device)
+        t = torch.empty(x.shape, dtype=torch.float32, device=device)
+        return t.normal_(0.0, HF_QWEN_STD, generator=g).to(x.dtype)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return make(path, node)
+
+    shapes = qwen.init_params(cfg, None, "meta", torch.bfloat16)
+    return quant.quantize_params(walk(shapes, ()))
+
+
+def tp_budget(torch, cfg, full, specs, t: int) -> dict:
+    """Per-rank bytes of ``full`` under ``specs`` at tp ``t``, its 2-slot
+    bf16 KV cache and its largest prefill (K/V and activations), as the
+    budget tests count them."""
+    from infernos_tpu_torch.models import qwen
+    from infernos_tpu_torch.parallel.budget import per_chip_bytes
+
+    axis = {"tp": t}
+    total = max(TP_PROMPTS) + TP_NEW + 16
+    return {"weights_int8": per_chip_bytes(full, specs, axis),
+            "kv_cache_bf16": per_chip_bytes(
+                qwen.init_cache(cfg, 2, total, torch.bfloat16, "meta"),
+                qwen.cache_shardings(cfg), axis),
+            "prefill_kv_bf16": per_chip_bytes(
+                qwen.init_cache(cfg, 1, max(TP_PROMPTS), torch.bfloat16, "meta"),
+                qwen.cache_shardings(cfg), axis),
+            "prefill_act_bf16": max(TP_PROMPTS) * cfg.hidden_size * 2 * 4}
+
+
+def tp_prompts(cfg):
+    rng = np.random.default_rng(TP_SEED)
+    return [rng.integers(0, cfg.vocab_size, size=n) for n in TP_PROMPTS]
+
+
+class LogitsRecord:
+    """Wraps ``qwen.prefill`` and ``qwen.decode_step``: keeps each call's
+    last-position logits (prefill) or logits (decode step) on the host with
+    the step's input tokens, positions and write mask; with ``feed`` (an
+    earlier record) each decode step takes that record's input tokens in
+    place of its own, so both runs see the same inputs."""
+
+    def __init__(self, torch, qwen, feed=None):
+        self.torch, self.qwen, self.feed = torch, qwen, feed
+        self.prefill, self.steps = [], []
+        self._prefill, self._decode = qwen.prefill, qwen.decode_step
+
+    def __enter__(self):
+        torch, rec = self.torch, self
+
+        def prefill(*a, **kw):
+            out = rec._prefill(*a, **kw)
+            rec.prefill.append(out[0][:, -1].float().cpu())
+            return out
+
+        def decode_step(params, cfg, tokens, cache, pos, write=None, **kw):
+            if rec.feed is not None:
+                tokens = torch.as_tensor(rec.feed[len(rec.steps)]["tokens"],
+                                         device=tokens.device)
+            logits, cache = rec._decode(params, cfg, tokens, cache, pos, write, **kw)
+            rec.steps.append({"tokens": tokens.cpu(), "pos": pos.cpu(),
+                              "write": write.cpu(), "logits": logits.float().cpu()})
+            return logits, cache
+
+        self._patch = mock.patch.multiple(self.qwen, prefill=prefill, decode_step=decode_step)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+
+def tp_engine_ecfg(torch):
+    from infernos_tpu_torch.serving.llm_engine import LLMEngineConfig
+
+    return LLMEngineConfig(batch_slots=2, prompt_buckets=TP_PROMPTS,
+                           max_total_tokens=max(TP_PROMPTS) + TP_NEW + 16,
+                           max_new_tokens=TP_NEW, dtype=torch.bfloat16)
+
+
+def serve_tp(eng, prompts) -> list:
+    """``prompts`` through ``eng`` to the end: each request's token ids."""
+    from infernos_tpu_torch.serving.llm_engine import LLMRequest
+
+    reqs = [LLMRequest(p, lambda s, fin: None) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    streams = {}
+    while True:
+        for s in eng.slots:
+            if s is not None:
+                streams[id(s.req)] = s.streamer.tokens
+        if not eng.step():
+            break
+    return [list(streams[id(r)]) for r in reqs]
+
+
+def timed_steps(torch, eng, n: int) -> list:
+    """ms of ``n`` eager decode dispatches of ``eng``, each synchronised."""
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    ms = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        eng._step()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def tp14b_rank(cfg, record: bool, device=None) -> dict:
+    """One rank of ``tp_14b`` (and of ``nccl_1``): the whole int8 tree of
+    ``cfg`` made here, cut to this rank's shards, an ``LLMEngine(mesh=...)``
+    serving the two prompts; returns the tokens, the logits record
+    (``record``), the rank's parameter bytes beside the budget's, its peak
+    memory and the ms of ``TP_TIMED`` eager decode dispatches.
+    ``device="cpu"`` runs it on the CPU (``tests/test_torch_parallel_phase.py``
+    at tiny dims)."""
+    import torch
+
+    from infernos_tpu_torch.models import qwen, quant
+    from infernos_tpu_torch.parallel import make_mesh
+    from infernos_tpu_torch.parallel.mesh import shard
+    from infernos_tpu_torch.serving.llm_engine import LLMEngine
+
+    mesh = make_mesh(axes=("tp",), device=device)
+    cuda = mesh.device.type == "cuda"
+    full = qwen14b_tree(torch, cfg, mesh.device)
+    specs = quant.quantize_shardings(qwen.param_shardings(cfg), full)
+    parts = tp_budget(torch, cfg, full, specs, mesh.size)
+    params = shard(full, specs, mesh)
+    del full
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(params, cfg, tp_engine_ecfg(torch), mesh=mesh)
+    with LogitsRecord(torch, qwen) as rec:
+        tokens = serve_tp(eng, tp_prompts(cfg))
+    # every rank steps alike: the sums need all of them
+    ms = timed_steps(torch, eng, TP_TIMED)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
+           "tokens": tokens, "param_bytes": quant.quantized_bytes(params),
+           "budget": parts,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "dispatch_ms": ms, "cache": tuple(eng.cache.k.shape),
+           "modules": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "infernos_tpu"))}
+    if record and mesh.rank == 0:
+        out["prefill"], out["steps"] = rec.prefill, rec.steps
+    if mesh.backend == "gloo" and cuda:
+        out["gloo_all_gather_cuda"] = gloo_all_gather_probe(torch, mesh)
+    return out
+
+
+def gloo_all_gather_probe(torch, mesh) -> str:
+    """Whether gloo's ``all_gather`` takes CUDA tensors on this install
+    (the port gathers by a sum into a zeroed buffer either way): "works",
+    or the error it raised.  Every rank makes the same call."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(mesh.rank), device=mesh.device)
+    got = [torch.empty_like(x) for _ in range(mesh.size)]
+    try:
+        dist.all_gather(got, x)
+    except (RuntimeError, ValueError) as e:
+        return f"refused: {e}"[:200]
+    ok = all(bool((t == r).all()) for r, t in enumerate(got))
+    return "works" if ok else "wrong values"
+
+
+def rel_l2(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def tp_run(torch, cfg, n: int, device=None) -> dict:
+    """``tp_14b`` and ``nccl_1`` on ``cfg``: ``n`` ranks of
+    :func:`tp14b_rank`, then one rank alone (NCCL on the card), then the
+    unsharded engine on the same tree in this process, plain greedy and
+    again fed the tp run's decode inputs.  Returns the runs, each logits
+    row's relative L2 error (tp against unsharded, same inputs) and the
+    greedy tokens that agree."""
+    from infernos_tpu_torch.models import qwen
+    from infernos_tpu_torch.parallel.ranks import run_ranks
+    from infernos_tpu_torch.serving.llm_engine import LLMEngine
+
+    dev = torch.device(device or "cuda")
+    t0 = time.monotonic()
+    tp = run_ranks(tp14b_rank, n, (cfg, True, device), device=device)
+    tp_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    one = run_ranks(tp14b_rank, 1, (cfg, False, device), device=device)[0]
+    one_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    full = qwen14b_tree(torch, cfg, dev)
+    prompts = tp_prompts(cfg)
+    plain = serve_tp(LLMEngine(full, cfg, tp_engine_ecfg(torch), device=dev), prompts)
+    eng = LLMEngine(full, cfg, tp_engine_ecfg(torch), device=dev)
+    with LogitsRecord(torch, qwen, feed=tp[0]["steps"]) as ref:
+        serve_tp(eng, prompts)
+    ms_plain = timed_steps(torch, eng, TP_TIMED)
+    # the noise floor: both bf16 runs against fp32 activations on the same
+    # int8 tree, at the prefills' last positions
+    from infernos_tpu_torch.models.convert import cast_floating
+
+    f32 = cast_floating(full, torch.float32)
+    exact = [qwen.prefill(f32, cfg, torch.as_tensor(p, device=dev)[None])[0][:, -1].float().cpu()
+             for p in prompts]
+    del f32
+    vs_fp32 = {"unsharded_bf16": [rel_l2(torch, a, b) for a, b in zip(ref.prefill, exact)],
+               f"tp{n}_bf16": [rel_l2(torch, a, b) for a, b in zip(tp[0]["prefill"], exact)]}
+    ref_s = time.monotonic() - t0
+    check(len(ref.steps) == len(tp[0]["steps"]) and len(ref.prefill) == len(TP_PROMPTS),
+          f"tp_14b: {len(ref.steps)} unsharded decode steps against "
+          f"{len(tp[0]['steps'])} at tp {n}")
+    errs, agree, total = [], 0, 0
+    for a, b in zip(tp[0]["prefill"], ref.prefill):
+        errs.append(rel_l2(torch, a, b))
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        total += a.shape[0]
+    for a, b in zip(tp[0]["steps"], ref.steps):
+        check(bool((a["pos"] == b["pos"]).all() and (a["write"] == b["write"]).all()),
+              "tp_14b: the replayed unsharded run left the tp run's positions")
+        live = a["write"]
+        if bool(live.any()):
+            errs.append(rel_l2(torch, a["logits"][live], b["logits"][live]))
+            agree += int((a["logits"][live].argmax(-1) == b["logits"][live].argmax(-1)).sum())
+            total += int(live.sum())
+    return {"tp": tp, "one": one, "plain": plain, "errs": errs, "agree": agree,
+            "total": total, "vs_fp32": vs_fp32, "ms_plain": ms_plain, "tp_s": tp_s,
+            "one_s": one_s, "ref_s": ref_s}
+
+
+def tp_checks(cfg, n: int, run: dict) -> None:
+    """What ``tp_14b`` and ``nccl_1`` hold of :func:`tp_run`'s result."""
+    tp, one = run["tp"], run["one"]
+    check(max(run["errs"]) <= TP_REL_TOL,
+          f"tp_14b: logits rel L2 {max(run['errs'])} > {TP_REL_TOL}")
+    for t, u in zip(run["vs_fp32"][f"tp{n}_bf16"], run["vs_fp32"]["unsharded_bf16"]):
+        check(t <= TP_FP32_RATIO * u,
+              f"tp_14b: tp logits against fp32 {t} > {TP_FP32_RATIO} x the "
+              f"unsharded run's {u}")
+    for r in tp:
+        check(r["backend"] == "gloo", f"tp_14b: rank {r['rank']} over {r['backend']}")
+        check(r["param_bytes"] == r["budget"]["weights_int8"],
+              f"tp_14b: rank {r['rank']} holds {r['param_bytes']} parameter bytes, "
+              f"the budget says {r['budget']['weights_int8']}")
+        check(r["cache"][2] == cfg.num_kv_heads // n,
+              f"tp_14b: rank {r['rank']} cache {r['cache']}")
+        check(not r["modules"], f"tp_14b: rank {r['rank']} loaded {r['modules']}")
+        check(r["tokens"] == tp[0]["tokens"], "tp_14b: the ranks took different tokens")
+    check(one["tokens"] == run["plain"],
+          f"nccl_1: tokens {one['tokens']} != unsharded {run['plain']}")
+    check(one["param_bytes"] == one["budget"]["weights_int8"],
+          f"nccl_1: {one['param_bytes']} parameter bytes, budget "
+          f"{one['budget']['weights_int8']}")
+
+
+def phase_parallel(torch) -> dict:
+    """Phase ``parallel``: the parallel plane over rank processes on the card.
+
+    ``dryrun``: ``dryrun_multichip(2)`` (two ranks on the card over gloo):
+    the TTS and STT engines of each rank launch kernel 2 and kernel 1 in
+    that rank's process (counted there, each above 0), the LLM runs under
+    tp 2, and no rank loads ``jax`` or the reference package.
+    ``tp_14b``: Qwen2.5-14B at full width, ``TP_LAYERS`` layers, HF's init
+    in bf16 quantized whole to int8, over ``TP_RANKS`` ranks on the card
+    (gloo): each rank's engine serves prompts of 64 and 128 tokens for 16
+    new tokens; each logits row (the prefills' last positions, every decode
+    step's, on the same inputs) within ``TP_REL_TOL`` relative L2 of the
+    unsharded engine on the same tree here, and the prefill rows no further
+    from fp32 activations on that tree than ``TP_FP32_RATIO`` times the
+    unsharded rows are; each rank's parameter bytes
+    equal to the budget's ``per_chip_bytes``, byte for byte.  ``nccl_1``:
+    the same engine code at tp 1 in a one-rank NCCL group: its tokens equal
+    the unsharded engine's.  Prints the backend and device of each rank,
+    the budget's parts beside each rank's peak memory and the card's
+    memory, and one eager decode dispatch at tp 4 and tp 1 (no speed figure:
+    four ranks time-share one card and their sums go through the host).
+    Returns the dry run's kernel launches by rank."""
+    from infernos_tpu_torch.parallel.budget import budget_report
+    from infernos_tpu_torch.parallel.dryrun import dryrun_multichip
+    from infernos_tpu_torch.utils.platform import card_info
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    res = dryrun_multichip(2)
+    dry_s = time.monotonic() - t0
+    emit("parallel_dryrun", seconds=dry_s, card=card_info(),
+         ranks=[{k: r[k] for k in ("rank", "device", "backend", "launches", "modules")}
+                for r in res])
+    for r in res:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"dryrun: rank {r['rank']} on {r['device']} over {r['backend']}")
+        check(r["launches"]["tts"]["bf16_step"] > 0 and r["launches"]["stt"]["attention"] > 0,
+              f"dryrun: rank {r['rank']} launched {r['launches']}")
+        check(not r["modules"], f"dryrun: rank {r['rank']} loaded {r['modules']}")
+
+    cfg = qwen14b_cfg()
+    run = tp_run(torch, cfg, TP_RANKS)
+    tp, one = run["tp"], run["one"]
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    parts = tp[0]["budget"]
+    emit("parallel_tp_14b", seconds=run["tp_s"], reference_s=run["ref_s"], card=card_info(),
+         layers=f"{TP_LAYERS} of 48",
+         ranks=[{"rank": r["rank"], "device": r["device"], "backend": r["backend"],
+                 "param_bytes": r["param_bytes"],
+                 "budget_weights": r["budget"]["weights_int8"],
+                 "peak_bytes": r["peak_bytes"], "cache": r["cache"]} for r in tp],
+         budget_parts=parts, budget=budget_report(parts, limit=total_mem),
+         card_total_memory=total_mem,
+         max_rel_l2=max(run["errs"]), rel_l2=run["errs"], rel_tol=TP_REL_TOL,
+         prefill_rel_l2_vs_fp32=run["vs_fp32"],
+         greedy_agree=f"{run['agree']} of {run['total']}",
+         tp_tokens=tp[0]["tokens"], unsharded_tokens=run["plain"],
+         gloo_all_gather_cuda=tp[0].get("gloo_all_gather_cuda"),
+         decode_dispatch_ms={f"tp{TP_RANKS}_gloo_shared_card": tp[0]["dispatch_ms"],
+                             "tp1_nccl": one["dispatch_ms"], "unsharded": run["ms_plain"],
+                             "note": f"no speed figure: {TP_RANKS} ranks time-share one "
+                                     "card and their sums go through the host"})
+    emit("parallel_nccl_1", seconds=run["one_s"], backend=one["backend"],
+         device=one["device"], tokens_equal=one["tokens"] == run["plain"],
+         param_bytes=one["param_bytes"], budget_weights=one["budget"]["weights_int8"],
+         peak_bytes=one["peak_bytes"])
+    check(one["backend"] == "nccl", f"nccl_1: backend {one['backend']}")
+    tp_checks(cfg, TP_RANKS, run)
+    torch.cuda.empty_cache()
+    emit("parallel", seconds=time.monotonic() - t_phase, dryrun_s=dry_s,
+         tp_14b_s=run["tp_s"], nccl_1_s=run["one_s"], reference_s=run["ref_s"])
+    return {f"dryrun_rank{r['rank']}": r["launches"] for r in res}
 
 AIA_SILENT_TURNS = 2  # the most turns the tiny LLM leaves unanswered in bf16 on the card
 
@@ -4717,7 +5115,8 @@ def _remote_call_alone(torch, attn):
 
 
 # the phases ``--phases`` runs alone after the build
-ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone}
+ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone,
+                "parallel": lambda torch, attn: phase_parallel(torch)}
 
 
 def main(argv=None) -> int:
@@ -4731,8 +5130,8 @@ def main(argv=None) -> int:
                          "stt_ladder, ckpt_port) alone after the build (prints no "
                          "result line)")
     ap.add_argument("--phases", metavar="NAME,...",
-                    help="run only these of the bench phases, stt_ladder, ckpt_port "
-                         "and remote_call, in the order given, after the build "
+                    help="run only these of the bench phases, stt_ladder, ckpt_port, "
+                         "remote_call and parallel, in the order given, after the build "
                          "(prints no result line): " + ", ".join(ALONE_PHASES))
     ap.add_argument("--ckpt-seed", type=int, default=CKPT_SEED,
                     help="the generator seed of ckpt_port's HF-layout weights "
@@ -4815,6 +5214,7 @@ def main(argv=None) -> int:
     ttsb_bf16 = phase_ttsbench(torch)
     probe_bf16 = phase_ttsprobe(torch)
     phase_llmbench(torch)
+    par = phase_parallel(torch)
     aiab_attn, aiab_bf16 = phase_aia_bench(torch)
     echo_attn, echo_bf16 = phase_echo(torch)
     prof_attn, prof_bf16 = phase_ramp_profile(torch)
@@ -4831,7 +5231,8 @@ def main(argv=None) -> int:
                "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
                "loopback": loop_attn, "stt_ladder": ladder_attn, "sttbench": sttb_attn,
                "aia_bench": aiab_attn, "echo": echo_attn, "ramp_profile": prof_attn,
-               "ckpt_port": ckpt_attn}
+               "ckpt_port": ckpt_attn,
+               **{f"parallel_{k}": v["stt"]["attention"] for k, v in par.items()}}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
@@ -4840,7 +5241,8 @@ def main(argv=None) -> int:
                "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,
                "lt_ramp": ramp_bf16, "loopback": loop_bf16, "ttsbench": ttsb_bf16,
                "ttsprobe": probe_bf16, "aia_bench": aiab_bf16, "echo": echo_bf16,
-               "ramp_profile": prof_bf16, "ckpt_port": ckpt_bf16}
+               "ramp_profile": prof_bf16, "ckpt_port": ckpt_bf16,
+               **{f"parallel_{k}": v["tts"]["bf16_step"] for k, v in par.items()}}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     kernels[2]["launches"] = turn_int8

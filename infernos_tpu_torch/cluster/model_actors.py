@@ -406,8 +406,8 @@ class LLMActor(Actor):
                 "INFERNOS_MODEL_MODE=tiny-real but no trained tiny LLM "
                 f"checkpoint in {tiny_real.data_path('tiny_llm')}")
         # one card serves the 7B at int8 (about 8.7 GB of weights); the
-        # reference's 14B target (Cluster/InfernLLMWorker.py:64) is placed
-        # over several cards (multi-device work)
+        # reference's 14B target (Cluster/InfernLLMWorker.py:64) fits one
+        # 80 GB card too (15.2 GiB in int8, parallel/budget.py)
         cfg = presets.QWEN_TINY if self.tiny else presets.QWEN25_7B
         dtype = serving_dtype(dev)
         ecfg = self.ecfg or dataclasses.replace(

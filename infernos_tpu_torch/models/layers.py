@@ -29,13 +29,26 @@ def _gen_device(generator: torch.Generator) -> torch.device:
     return torch.device(generator.device)
 
 
+def _meta(shape, device, dtype):
+    """A shape-only leaf: on the ``meta`` device nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta", dtype=dtype)
+    return None
+
+
 def uniform(generator, shape, bound, device, dtype=torch.float32):
+    m = _meta(shape, device, dtype)
+    if m is not None:
+        return m
     t = torch.empty(shape, device=_gen_device(generator), dtype=torch.float32)
     t.uniform_(-bound, bound, generator=generator)
     return t.to(device=device, dtype=dtype)
 
 
 def normal(generator, shape, std, device, dtype=torch.float32):
+    m = _meta(shape, device, dtype)
+    if m is not None:
+        return m
     t = torch.empty(shape, device=_gen_device(generator), dtype=torch.float32)
     t.normal_(0.0, std, generator=generator)
     return t.to(device=device, dtype=dtype)

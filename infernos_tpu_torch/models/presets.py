@@ -25,9 +25,12 @@ SPEECHT5_FULL = st5.SpeechT5Config()
 HIFIGAN_FULL = hfg.HifiGanConfig()
 WHISPER_LARGE_V3 = wsp.WhisperConfig()
 QWEN25_14B = qwen.QwenConfig()
-# Qwen2.5-7B-Instruct dims: the single-card serving point (int8 weights,
-# about 8.7 GB); the 14B target is placed over several cards (multi-device
-# work)
+# Qwen2.5-7B-Instruct dims: the serving point of LLMActor (int8 weights,
+# about 8.7 GB).  The 14B target fits one 80 GB H100 whole: 15.2 GiB of
+# weights in int8 or 27.5 GiB in bf16, plus 3.0 GiB of bf16 KV cache for 8
+# slots x 2048 (parallel/budget.py; tests/test_torch_parallel_specs.py);
+# tensor parallelism over several cards (LLMEngine(mesh=)) is for cards
+# that cannot hold a model
 QWEN25_7B = qwen.QwenConfig(
     vocab_size=152064, hidden_size=3584, num_layers=28, num_heads=28,
     num_kv_heads=4, head_dim=128, intermediate_size=18944,

@@ -9,8 +9,9 @@ memory and a decode step reads half of what it reads in bf16.
 
 Scales stay fp32 whatever the activation type: quantize AFTER casting the
 dense tree (``cast_floating`` also leaves the ``scale`` of a quantized node
-alone).  Placement of quantized weights across several cards
-(``quantize_shardings``) comes with the multi-device work.
+alone).  :func:`quantize_shardings` places a quantized tree over a ``tp``
+mesh: quantize the whole tree first, then shard it (scales drawn per shard
+would differ for row-parallel weights).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+
+from ..parallel.mesh import P
 
 #: path fragments whose weights are accessed directly (not via layers.linear)
 #: and must stay dense
@@ -65,6 +68,32 @@ def quantize_params(params: Any, min_size: int = 4096,
         return node
 
     return walk(params, "")
+
+
+def quantize_shardings(specs: Any, qparams: Any) -> Any:
+    """Dense-layout spec tree -> one matching a :func:`quantize_params`
+    output.
+
+    ``qparams`` (tensors, ``meta`` ones too) tells which linears got
+    quantized; for those, ``w_q`` keeps the dense weight's spec and the
+    per-out-channel ``scale`` keeps the spec's leading (layer-stack) and
+    last (out-channel) axes, so a column-parallel weight's scales shard
+    with it and a row-parallel weight's scales replicate."""
+
+    def walk(spec, node):
+        if isinstance(node, dict) and "w_q" in node:
+            wspec = spec["w"]
+            out = {"w_q": wspec, "scale": P(*wspec[:-2], wspec[-1])}
+            if "b" in node:
+                out["b"] = spec["b"]
+            return out
+        if isinstance(node, dict):
+            return {k: walk(spec[k], v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(spec[i], v) for i, v in enumerate(node)]
+        return spec
+
+    return walk(specs, qparams)
 
 
 def quantized_bytes(params: Any) -> int:

@@ -21,8 +21,17 @@ What differs, and why:
   refuse.  :func:`verify_steps` drops the rows of a window that runs past
   ``Tmax`` where the reference's clamped update shifts the window back;
   only junk tokens past a slot's budget can tell them apart.
-- Placement over several cards (``param_shardings``, ``cache_shardings``)
-  comes with the multi-device work.
+
+Tensor parallelism: :func:`param_shardings` and :func:`cache_shardings`
+are the reference's specs, spec for spec (``parallel/mesh.py`` ``P``).  The
+reference places the weights over a ``tp`` mesh axis and XLA inserts the
+all-reduces; here each rank of a ``tp`` mesh holds its shards (column
+shards of q/k/v/gate/up: ``num_heads/t`` query and ``num_kv_heads/t`` KV
+heads; row shards of o/down) and :func:`prefill`, :func:`decode_step` and
+:func:`verify_steps` take ``mesh=``: one sum over the group after o and
+one after down (one per attention block and one per MLP, as XLA inserts
+them), and the vocab-sharded readout's logits gathered.  A tied readout
+uses the replicated embedding and needs no gather.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import P
 from . import layers as L
 from .convert import HFStateDict
 
@@ -88,6 +98,47 @@ def init_params(cfg: QwenConfig, generator: torch.Generator, device,
         p["lm_head"] = {"w": L.normal(g, (cfg.hidden_size, cfg.vocab_size), 0.02,
                                       device, dtype)}
     return p
+
+
+def param_shardings(cfg: QwenConfig, tp_axis: str = "tp") -> Dict[str, Any]:
+    """Spec tree matching :func:`init_params`' layout.
+
+    Column-parallel q/k/v/gate/up (output dim sharded), row-parallel o/down
+    (input dim sharded): one sum per attention and per MLP.
+    """
+    # layer-stacked weights carry a leading (unsharded) layer dim
+    col = {"w": P(None, None, tp_axis), "b": P(None, tp_axis)}
+    colnb = {"w": P(None, None, tp_axis)}
+    row = {"w": P(None, tp_axis, None)}
+    layer = {
+        "ln1": {"g": P(None, None)}, "q": col, "k": col, "v": col, "o": row,
+        "ln2": {"g": P(None, None)}, "gate": colnb, "up": colnb, "down": row,
+    }
+    out = {
+        "embed": {"w": P(None, None)},
+        "layers": layer,
+        "ln_f": {"g": P(None)},
+    }
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = {"w": P(None, tp_axis)}
+    return out
+
+
+def shard_config(cfg: QwenConfig, mesh) -> QwenConfig:
+    """The config one rank of a ``tp`` mesh computes with: its
+    ``num_heads/t`` query heads and ``num_kv_heads/t`` KV heads."""
+    if mesh is None:
+        return cfg
+    t = mesh.axis_size("tp")
+    if cfg.num_heads % t or cfg.num_kv_heads % t:
+        raise ValueError(f"qwen: {cfg.num_heads} query and {cfg.num_kv_heads} KV "
+                         f"heads do not divide over tp {t}")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // t,
+                               num_kv_heads=cfg.num_kv_heads // t)
+
+
+def _psum(x, mesh):
+    return x if mesh is None else mesh.psum(x, "tp")
 
 
 def layer_list(params) -> List[Dict[str, Any]]:
@@ -144,6 +195,10 @@ def init_cache(cfg: QwenConfig, batch: int, max_len: int,
                      torch.zeros(shape, dtype=dtype, device=device))
 
 
+def cache_shardings(cfg: QwenConfig, tp_axis: str = "tp") -> QwenCache:
+    return QwenCache(P(None, None, tp_axis), P(None, None, tp_axis))
+
+
 def _qkv(lp, cfg: QwenConfig, h, cos, sin):
     """Projections of ``h`` ``[B, T, D]`` with RoPE: q ``[B, H, T, Dh]``,
     k and v ``[B, Hkv, T, Dh]``."""
@@ -181,20 +236,25 @@ def _mlp(lp, x):
                     lp["down"])
 
 
-def _readout(params, x):
+def _readout(params, cfg: QwenConfig, x, mesh=None):
     head = params.get("lm_head")
     if head is None:
         return torch.matmul(x, params["embed"]["w"].transpose(0, 1))
-    return torch.matmul(x, head["w"])
+    logits = torch.matmul(x, head["w"])
+    return logits if mesh is None else mesh.gather_last(logits, cfg.vocab_size, "tp")
 
 
-def prefill(params, cfg: QwenConfig, tokens, pos_offset=None, layers=None):
+def prefill(params, cfg: QwenConfig, tokens, pos_offset=None, layers=None,
+            mesh=None):
     """Teacher-forced pass over ``[B, T]`` tokens.
 
     Returns (logits ``[B, T, V]``, k-stack, v-stack ``[L, B, Hkv, T, Dh]``).
     ``pos_offset`` ``[B]`` shifts positions for continued sequences.
     ``layers``: :func:`layer_list` of ``params``, when the caller keeps one.
+    ``mesh``: a ``tp`` mesh whose shards ``params`` are (the K/V stacks
+    then hold this rank's ``Hkv/t`` heads; the logits are whole).
     """
+    lc = shard_config(cfg, mesh)
     B, T = tokens.shape
     x = params["embed"]["w"][tokens]
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
@@ -204,51 +264,54 @@ def prefill(params, cfg: QwenConfig, tokens, pos_offset=None, layers=None):
     mask = L.causal_bias(T, device=tokens.device)[:, :, None]  # [1, 1, 1, T, T]
     ks, vs = [], []
     for lp in layers or layer_list(params):
-        q, k, v = _qkv(lp, cfg, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
-        x = x + L.linear(_grouped_attention(cfg, q, k, v, bias=mask), lp["o"])
-        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps))
+        q, k, v = _qkv(lp, lc, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
+        x = x + _psum(L.linear(_grouped_attention(lc, q, k, v, bias=mask), lp["o"]), mesh)
+        x = x + _psum(_mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps)), mesh)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    return _readout(params, x), torch.stack(ks), torch.stack(vs)
+    return _readout(params, cfg, x, mesh), torch.stack(ks), torch.stack(vs)
 
 
 def decode_step(params, cfg: QwenConfig, tokens, cache: QwenCache, pos,
-                write=None, layers=None):
+                write=None, layers=None, mesh=None):
     """One token for all slots: tokens ``[B]``, pos ``[B]`` -> (logits
     ``[B, V]``, cache).
 
     Each slot writes its K/V row in place at its own position (a position
     past the end lands on the last row, the reference's clamped update);
     ``write`` ``[B]`` bool keeps the old row where False.  A slot attends to
-    rows ``<= pos``."""
+    rows ``<= pos``.  ``mesh``: as in :func:`prefill` (the cache holds this
+    rank's KV heads)."""
+    lc = shard_config(cfg, mesh)
     x = params["embed"]["w"][tokens][:, None, :]  # [B, 1, D]
     cos, sin = _rope_tables(cfg, pos[:, None])  # [B, 1, Dh]
     Tmax = cache.k.shape[3]
     keep = None
     for i, lp in enumerate(layers or layer_list(params)):
-        q, k, v = _qkv(lp, cfg, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
+        q, k, v = _qkv(lp, lc, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
         wp = L.write_rows(cache.k[i], k[:, :, 0], pos, write)
         L.write_rows(cache.v[i], v[:, :, 0], pos, write)
         if keep is None:  # [B, 1, 1, 1, Tmax]
             keep = (torch.arange(Tmax, device=x.device)[None, :]
                     <= wp[:, None])[:, None, None, None]
-        x = x + L.linear(_grouped_attention(cfg, q, cache.k[i], cache.v[i], keep=keep),
-                         lp["o"])
-        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps))
+        x = x + _psum(L.linear(_grouped_attention(lc, q, cache.k[i], cache.v[i],
+                                                  keep=keep), lp["o"]), mesh)
+        x = x + _psum(_mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps)), mesh)
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)[:, 0]
-    return _readout(params, x), cache
+    return _readout(params, cfg, x, mesh), cache
 
 
 def verify_steps(params, cfg: QwenConfig, tokens, cache: QwenCache, pos,
-                 write=None, layers=None):
+                 write=None, layers=None, mesh=None):
     """K-token speculative-verify pass: tokens ``[B, K]``, pos ``[B]``.
 
     Token j of each slot lands at position ``pos + j`` (its K/V written
     there in place; rows past ``Tmax`` and the rows of slots where
     ``write`` is False are dropped) and its query attends to rows
     ``<= pos + j``: a causal mini-prefill against the live cache.  Returns
-    (logits ``[B, K, V]``, cache)."""
+    (logits ``[B, K, V]``, cache).  ``mesh``: as in :func:`decode_step`."""
+    lc = shard_config(cfg, mesh)
     B, K = tokens.shape
     x = params["embed"]["w"][tokens]  # [B, K, D]
     positions = pos[:, None] + torch.arange(K, device=tokens.device)[None, :]
@@ -260,15 +323,15 @@ def verify_steps(params, cfg: QwenConfig, tokens, cache: QwenCache, pos,
     if write is not None:
         ok = [o & write for o in ok]
     for i, lp in enumerate(layers or layer_list(params)):
-        q, k, v = _qkv(lp, cfg, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
+        q, k, v = _qkv(lp, lc, rms_norm(x, lp["ln1"], cfg.rms_norm_eps), cos, sin)
         for j in range(K):
             L.write_rows(cache.k[i], k[:, :, j], positions[:, j], ok[j])
             L.write_rows(cache.v[i], v[:, :, j], positions[:, j], ok[j])
-        x = x + L.linear(_grouped_attention(cfg, q, cache.k[i], cache.v[i], keep=keep),
-                         lp["o"])
-        x = x + _mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps))
+        x = x + _psum(L.linear(_grouped_attention(lc, q, cache.k[i], cache.v[i],
+                                                  keep=keep), lp["o"]), mesh)
+        x = x + _psum(_mlp(lp, rms_norm(x, lp["ln2"], cfg.rms_norm_eps)), mesh)
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    return _readout(params, x), cache
+    return _readout(params, cfg, x, mesh), cache
 
 
 # -- HF weight import ----------------------------------------------------------

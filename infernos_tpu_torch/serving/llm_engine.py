@@ -25,7 +25,8 @@ tokens), joins a free slot, and frees it the moment it ends.
 - Submitters take ``_sub_lock`` only; the stepping thread holds ``_lock``.
 
 ``LLMEngineConfig.decode_unroll`` (an XLA scan unroll) is not ported.
-Placement over several cards comes with the multi-device work.
+Tensor parallelism: ``LLMEngine(..., mesh=)`` with a ``tp`` mesh
+(``parallel/mesh.py``), one engine per rank.
 """
 
 from __future__ import annotations
@@ -130,10 +131,31 @@ class LLMEngine:
                  ecfg: LLMEngineConfig = LLMEngineConfig(),
                  detokenize: Optional[Callable[[List[int]], str]] = None,
                  eos_ids: Optional[Sequence[int]] = None,
-                 device=None):
+                 device=None, mesh=None):
         """``params`` must already live on ``device`` (the card unless the
-        caller asks for the CPU) in the types the caller serves."""
+        caller asks for the CPU) in the types the caller serves.
+
+        ``mesh``: a ``tp`` mesh (``parallel.make_mesh(t, axes=("tp",))``)
+        for tensor parallelism, one engine per rank, on the mesh's device.
+        ``params`` are already this rank's shards (``parallel.mesh.shard``
+        under ``qwen.param_shardings``, or ``quant.quantize_shardings`` of
+        a tree quantized whole), and the KV cache holds this rank's
+        ``num_kv_heads/t`` heads (``qwen.cache_shardings``), so decode
+        attention stays local and each layer sums over the group twice.
+        Every rank must run the same host program: the same submits in the
+        same order, stepped by one thread.  The greedy argmax reads the
+        gathered logits, which every rank holds alike (each sum hands all
+        ranks the same values), so every rank takes the same tokens and
+        the slots' host state stays in lockstep; a rank that strays hangs
+        a collective until the group's timeout fails it.  The path is
+        eager: a gloo collective cannot be captured in a CUDA graph."""
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"LLMEngine: device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = default_device(device)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.ecfg = ecfg
@@ -143,8 +165,9 @@ class LLMEngine:
         self._layers = qwen.layer_list(params)
         self._eos = torch.tensor(sorted(self.eos_ids), device=dev)
         B = ecfg.batch_slots
-        self.cache = qwen.init_cache(cfg, B, ecfg.max_total_tokens,
-                                     dtype=ecfg.dtype, device=dev)
+        self.cache = qwen.init_cache(qwen.shard_config(cfg, mesh), B,
+                                     ecfg.max_total_tokens, dtype=ecfg.dtype,
+                                     device=dev)
         self.pos = torch.zeros(B, dtype=torch.long, device=dev)
         self.cur_tok = torch.zeros(B, dtype=torch.long, device=dev)
         self.done = torch.ones(B, dtype=torch.bool, device=dev)
@@ -169,7 +192,7 @@ class LLMEngine:
     @torch.no_grad()
     def _prefill_bucket(self, tokens: torch.Tensor, prompt_len: int):
         logits, ks, vs = qwen.prefill(self.params, self.cfg, tokens,
-                                      layers=self._layers)
+                                      layers=self._layers, mesh=self.mesh)
         # argmax on the device: the host fetches one token, not a row
         first_tok = logits[0, prompt_len - 1].argmax()
         return first_tok, ks.to(self.ecfg.dtype), vs.to(self.ecfg.dtype)
@@ -193,7 +216,7 @@ class LLMEngine:
         for _ in range(self.ecfg.steps_per_dispatch):
             logits, _ = qwen.decode_step(self.params, self.cfg, cur_tok, self.cache,
                                          pos, write=~done & (pos < Tmax),
-                                         layers=self._layers)
+                                         layers=self._layers, mesh=self.mesh)
             nxt = logits.argmax(dim=-1)
             # freeze a slot on the device once it emits EOS inside this
             # window (the host still owns the slot's lifecycle)
@@ -215,7 +238,8 @@ class LLMEngine:
         done = self.done
         tokens_in = torch.cat([self.cur_tok[:, None], draft], dim=1)
         logits, _ = qwen.verify_steps(self.params, self.cfg, tokens_in, self.cache,
-                                      self.pos, write=~done, layers=self._layers)
+                                      self.pos, write=~done, layers=self._layers,
+                                      mesh=self.mesh)
         pred = logits.argmax(dim=-1)  # [B, K]
         matches = (pred[:, :-1] == draft).long()
         a = matches.cumprod(dim=1).sum(dim=1)  # leading matches

@@ -38,7 +38,13 @@
   ``torch`` and the port only, and the peers' sources import no ``jax``,
   reference or ``transformers`` module; a peer without a card refuses to
   start a model actor unless ``device="cpu"`` is asked, and the asker sees
-  the error; a peer serving a tiny LT call's STT loads none of them.
+  the error; a peer serving a tiny LT call's STT loads none of them;
+- the parallel plane (``parallel/mesh.py``, ``ranks.py``, ``budget.py``,
+  ``dryrun.py``) and the rank functions of the tensor-parallel tests import
+  the standard library, ``numpy``, ``torch`` and the port only; a CPU rank
+  process running a tp decode loads no ``jax``, ``jaxlib`` or reference
+  module; ``make_mesh``, ``run_ranks`` and the dry run's entry points
+  demand a card unless ``device="cpu"`` is asked.
 """
 
 import ast
@@ -96,7 +102,8 @@ def test_every_submodule_imports_without_jax_or_reference():
               "bench.sttbench", "bench.ttsbench", "bench.ttsprobe", "bench.llmbench",
               "bench.aiabench", "bench.echo", "models.checkpoint", "models.npz_io",
               "models.convert", "models.amendnet", "serving.speakers",
-              "tools.port_checkpoints"):
+              "tools.port_checkpoints", "parallel", "parallel.mesh", "parallel.ranks",
+              "parallel.budget", "parallel.dryrun"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -808,3 +815,36 @@ def test_remote_peer_serving_a_tiny_lt_call_loads_no_jax_or_reference(cpu_peer, 
         stop_all()
         stt.stop()
     assert cpu_peer.probe.ask_sync("modules") == []
+
+
+def test_parallel_plane_imports_no_jax_or_reference():
+    banned = {"jax", "jaxlib", "infernos_tpu", "transformers"}
+    for path in sorted((PKG / "parallel").glob("*.py")) + [ROOT / "tests" / "torch_rank_fns.py"]:
+        roots = set(_import_roots(path.read_text()))
+        assert roots <= set(sys.stdlib_module_names) | {"torch", "numpy", ".",
+                                                        "infernos_tpu_torch"}, (path, roots)
+        assert not roots & banned, (path, roots)
+
+
+def test_cpu_rank_process_loads_no_jax_or_reference():
+    import torch_rank_fns as rf
+    from infernos_tpu_torch.parallel.ranks import run_ranks
+
+    assert run_ranks(rf.loaded_modules, 2, device="cpu") == [[], []]
+
+
+@pytest.mark.parametrize("what", ["make_mesh", "run_ranks", "dryrun", "entry", "main"])
+def test_parallel_entry_points_demand_a_card_unless_cpu_is_asked(monkeypatch, what):
+    from infernos_tpu_torch.parallel import dryrun, make_mesh
+    from infernos_tpu_torch.parallel.ranks import run_ranks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"make_mesh": lambda **kw: make_mesh(1, **kw).device,
+            "run_ranks": lambda **kw: run_ranks(sys.getrecursionlimit, 1, **kw),
+            "dryrun": lambda **kw: dryrun.dryrun_multichip(2, **kw),
+            "entry": lambda **kw: dryrun.entry(**kw)[1][0]["feat_out"]["w"].device,
+            "main": lambda **kw: dryrun.main(["--ranks", "1"])}[what]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    if what in ("make_mesh", "entry"):
+        assert make(device="cpu") == torch.device("cpu")

@@ -4,7 +4,7 @@ copy of ``tests/test_qwen_parity.py`` at its tolerances: ``port_from_hf``
 equal to the JAX port's tree (untied and tied embeddings), prefill
 (``atol`` 3e-4), incremental steps against prefill (3e-4), prefill K/V
 against the steps' K/V (2e-5), greedy against HF ``generate``.  The JAX
-file's tensor-parallel case waits for the port's multi-device work.
+file's tensor-parallel case is in ``tests/test_torch_llm_tp.py``.
 """
 
 import dataclasses
