@@ -11,10 +11,13 @@ Phases, each printing one JSON line:
 3. kernel 1 -- encoder attention kernel vs its plain PyTorch version, at
                whisper-large-v3's shapes and at the tiny-real encoder's;
 4. kernel 2 -- SpeechT5 decoder-step kernel (one cooperative launch per
-               step) vs its plain version, with bf16 weights (also at the
-               tiny-real TTS engine's shapes, on its weights) and then
-               (``kernel_tts_step_int8``) with int8 weights and
-               per-output-channel scales;
+               step of up to 32 slots) vs its plain version, with bf16
+               weights (also at the tiny-real TTS engine's shapes, on its
+               weights) and then (``kernel_tts_step_int8``) with int8
+               weights and per-output-channel scales; each mode also at 40
+               and 48 slots (a launch per group of 32, ``wide``); then a
+               tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
+               sessions (``tts_wide_engine``);
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
                streams 4 sessions to >= 1 s of audio each;
@@ -140,7 +143,18 @@ Phases, each printing one JSON line:
                utterance, tokens against ``whisper.decode_full``) and
                ``TTSActor`` (one say of 64 steps, each step against
                ``speecht5.decode_full``, finite audio);
-30. launches -- the kernels and copies the card runs for one
+30. train   -- the trainers (``infernos_tpu_torch/tools``): the attention
+               kernel's autograd Function (the kernel's forward, the
+               reference's recomputed backward) against fp32 autograd of the
+               plain attention at large-v3 and tiny widths, masked and not;
+               one tiny STT step through the kernel against the same step
+               through the plain attention (2 launches a step); then the
+               STT, SpeechT5, HiFi-GAN, LLM, VAD and AmendNet trainers 30
+               steps each on two pre-built batches (fp32 masters, bf16
+               forward), each loss finite and falling, each checkpoint saved
+               under ``infernos_tpu_torch/build/trained`` and served once
+               through the port's loaders;
+31. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call (1), one ``fused_decode_step`` call
                in each weight mode (1) and one ``whisper.encode``, counted
                with the profiler, last so that it slows nothing.
@@ -162,14 +176,15 @@ read right after (in ``daemon`` and ``daemon_aia``, by the daemon's
 process, reported on SIGUSR2 after its warm-ups and after the calls; in
 the bench phases, by the bench's process under ``BENCH_PRELUDE``; in
 ``remote_call``, kernel 1's by the peer, asked through its probe; in
-``parallel``, kernels 1 and 2 by each rank process of the dry run).  The
+``parallel``, kernels 1 and 2 by each rank process of the dry run; in
+``train``, kernel 1's by the STT trainer's run).  The
 bench phases hold checks, not SLAs: their latencies and rates are printed
 as measurements.
 ``--only kernels`` stops after the kernel phases and ``--only attention``
 after the first of them (quick build-and-compare runs); ``--only benches``
 runs the bench phases, ``stt_ladder`` and ``ckpt_port`` alone after the
-build, and ``--phases a,b`` the named ones of them, ``remote_call`` or
-``parallel``.
+build, and ``--phases a,b`` the named ones of them, ``remote_call``,
+``parallel`` or ``train``.
 They print no result line.
 """
 
@@ -496,6 +511,77 @@ def tiny_real_steps(torch, ts) -> dict:
             "tiny_real_cache_rows_max_abs_err": row_err}
 
 
+WIDE_SLOTS = (40, 48)  # beyond one launch's MAX_B: a launch per group of 32
+
+
+def wide_steps(torch, ts, cfg, fw, g, name: str, int8: bool) -> dict:
+    """The step kernel against its plain version at 40 and 48 slots (two
+    launches a step, groups of 32 and the rest, each on its slot slice of
+    the same caches), two chained steps at full width; and each width's
+    device time per step (graph replay)."""
+    out = {}
+    for B in WIDE_SLOTS:
+        T, S = 512, 96
+        lens = [96, 1] + [(7 * i) % S + 1 for i in range(B - 2)]
+        pos0 = [0, T - 1] + [(37 * i) % (T - 2) for i in range(B - 2)]
+        before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
+        h_err, h16_err, row_err, untouched, ck, _, enc_mask = compare_steps(
+            torch, ts, cfg, fw, g, B, T, S, f"{name} B={B}", lens=lens, pos0=pos0, steps=2)
+        moved = (ts.fused_decode_step.launches - before[0],
+                 ts.fused_decode_step.launches_int8 - before[1])
+        n = 2 * ts.launches_per_step(B)
+        check(moved == ((0, n) if int8 else (n, 0)),
+              f"{name} B={B}: launch counts moved by {moved}, want {n} in 2 steps")
+        pos = torch.full((B,), 256, device="cuda")
+        x = torch.randn((B, 1, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
+        out[B] = {"hidden_max_abs_err": h_err, "bf16_hidden_max_abs_err": h16_err,
+                  "cache_rows_max_abs_err": row_err, "other_rows_untouched": untouched,
+                  "launches_per_step": ts.launches_per_step(B),
+                  "ms_per_step": graph_ms(lambda: ts.fused_decode_step(
+                      None, cfg, x, ck, pos, enc_mask, packed=fw), 20)}
+    return out
+
+
+def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
+    """A ``TTSEngine`` of ``slots`` slots on the card (tiny-real weights,
+    bf16, Griffin-Lim) runs ``ticks`` ticks with ``slots`` sessions: every
+    step of all slots is one launch per group of 32, counted from 0 here,
+    and every session has finite audio by the end.  Returns the launches."""
+    from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.serving import tts_engine as tts
+
+    tp, tcfg, vp, vcfg, tok, table = tiny_real.load_tiny_tts("gl", "cuda")
+    eng = tts.TTSEngine(tp, tcfg, vp, vcfg, tts.TTSEngineConfig(
+        batch_slots=slots, max_text_tokens=RTP_TTS_TOKENS, max_steps=RTP_TTS_STEPS,
+        stop_threshold=0.5, dtype=torch.bfloat16), device="cuda")
+    chunks = {i: [] for i in range(slots)}
+    for i in range(slots):
+        eng.start_session(np.asarray(tok(CALL_LINES[i % 2][4]), np.int32), table[i % len(table)],
+                          chunks[i].append)
+    calls = []
+    step = mock.patch.object(tts, "fused_decode_step",
+                             side_effect=lambda *a, **k: calls.append(1) or
+                             ts.fused_decode_step(*a, **k))
+    ts.fused_decode_step.launches = 0  # this path starts here
+    t0 = time.perf_counter()
+    with step:
+        for _ in range(ticks):
+            eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ts.fused_decode_step.launches
+    check(calls and launches == ts.launches_per_step(slots) * len(calls),
+          f"tts {slots} slots: {launches} launches for {len(calls)} steps")
+    for i, cs in chunks.items():
+        audio = [c for c in cs if c is not None]
+        check(audio and all(np.isfinite(c).all() for c in audio),
+              f"tts {slots} slots: session {i} has no finite audio after {ticks} ticks")
+    emit("tts_wide_engine", slots=slots, sessions=slots, ticks=ticks, steps=len(calls),
+         launches=launches, launches_per_step=ts.launches_per_step(slots), wall_s=wall,
+         model="tiny-real SpeechT5 (bf16, Griffin-Lim)")
+    return launches
+
+
 def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
     """The decoder-step kernel against its plain version at full width; with
     ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
@@ -526,6 +612,7 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
           f"{name}: launch counts moved by {moved} (bf16, int8)")
     h_err, h16_err, row_err, untouched, ck, cp, enc_mask = errs
     tiny = {} if int8 else tiny_real_steps(torch, ts)
+    wide = wide_steps(torch, ts, cfg, fw, g, name, int8)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -548,17 +635,20 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
          bf16_tol=f"{STEP_TOL} + 2^-7 relative",
          cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
          ms_per_step=ms, eager_ms_per_step=eager_ms, plain_ms_per_step=plain_ms,
-         launches_per_step=ts.LAUNCHES_PER_STEP,
+         launches_per_step=ts.launches_per_step(B),
          step_bytes=n_bytes,
          weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
-         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **tiny, **extra)
+         bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **tiny, **extra,
+         wide=wide)
     return {"name": name, "route": "cuda",
             "source": "infernos_tpu_torch/csrc/tts_step.cu",
             "replaces": "infernos_tpu/ops/tts_step.py:727"
                         + (" (int8w mode, :128)" if int8 else ""),
             "max_abs_err": max(h_err, row_err,
                                tiny.get("tiny_real_hidden_max_abs_err", 0.0),
-                               tiny.get("tiny_real_cache_rows_max_abs_err", 0.0)),
+                               tiny.get("tiny_real_cache_rows_max_abs_err", 0.0),
+                               *(w[k] for w in wide.values()
+                                 for k in ("hidden_max_abs_err", "cache_rows_max_abs_err"))),
             "bf16_hidden_max_abs_err": h16_err,
             "ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -785,7 +875,7 @@ def phase_tts(torch, ts, profile_dir=None):
         check(rms[-1] > 0.0, f"tts session {i}: silent audio")
     emit("tts", model="speecht5+hifigan+amendnet", warmup_s=warmup_s,
          ticks=ticks, wall_s=wall_s,
-         step_launches=launches, launches_per_step=ts.LAUNCHES_PER_STEP,
+         step_launches=launches, launches_per_step=ts.launches_per_step(ecfg.batch_slots),
          mel_chunk_rel_err=mel_rel, mel_rel_tol=MEL_REL_TOL,
          first_chunk_s=[first[i] for i in sorted(first)],
          ms_per_tick=eng.tick_ms, samples=[samples(i) for i in chunks], rms=rms,
@@ -5025,6 +5115,311 @@ def phase_ckpt_port(torch, attn, setup=None):
     return attn_launches, step_launches
 
 
+# -- phase train: the trainers on the card, through a differentiable kernel 1 ---
+
+# dq/dk/dv of KernelAttention against fp32 autograd of the plain attention on
+# the same bf16 inputs: its backward recomputes that same fp32 attention, so
+# the two differ by the rounding of each gradient to bf16 (2^-9 relative) and
+# the bf16 output's own rounding in the reference's chain (relative L2)
+TRAIN_GRAD_REL_TOL = 4e-3
+# one STT step, kernel route against the plain route on the card, both with
+# a bf16 forward: the loss and the encoder q/k/v gradients (relative L2)
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_STEP_REL_TOL = 5e-2
+TRAIN_STEPS = 30  # steps per trainer on its pool
+# the mean loss of a trainer's last 5 steps must be below this share of its
+# first step's loss, on a pool of 2 batches (a run that learns nothing fails)
+TRAIN_FALL = {"tiny_stt": 0.8, "tiny_tts": 0.8, "vocoder": 0.95, "tiny_llm": 0.8,
+              "vad": 0.95, "amendnet": 0.98}
+TRAIN_SEED = 21
+
+
+def rel_l2_t(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm((got.float() - want.float()).flatten())
+                 / torch.linalg.vector_norm(want.float().flatten()).clamp_min(1e-30))
+
+
+def train_attention_grads(torch, attn) -> list:
+    """``KernelAttention`` (the kernel's forward, the reference's backward)
+    against fp32 autograd of the plain attention on the same bf16 inputs, at
+    whisper-large-v3's width (``[2, 1500, 1280]``, 20 heads) and at the tiny
+    STT's (``[4, 250, 256]``, 4 heads), each with and without a key mask;
+    the forward and the backward timed at large-v3 width."""
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    cases = []
+    for B, S, H, masked in ((2, 1500, 20, False), (2, 1500, 20, True),
+                            (4, 250, 4, False), (4, 250, 4, True)):
+        q, k, v = (torch.randn((B, S, H * 64), generator=g, device="cuda")
+                   .to(torch.bfloat16).requires_grad_() for _ in range(3))
+        gout = torch.randn((B, S, H * 64), generator=g, device="cuda").to(torch.bfloat16)
+        mask = None
+        if masked:
+            lens = torch.randint(S // 2, S + 1, (B,), generator=g, device="cuda")
+            mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+        before = attn.fused_attention.launches
+        out = attn.fused_attention(q, k, v, n_heads=H, mask=mask)
+        launched = attn.fused_attention.launches - before
+        check(out.grad_fn is not None and launched == 1,
+              f"train: attention under grad made no autograd node or {launched} launches")
+        grads = torch.autograd.grad(out, (q, k, v), gout, retain_graph=True)
+        ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref = attn.by_heads(attn._plain_attention, *ref_in, n_heads=H, mask=mask)
+        ref_grads = torch.autograd.grad(ref, ref_in, gout.float(), retain_graph=True)
+        torch.cuda.synchronize()
+        case = {"B": B, "S": S, "heads": H, "masked": masked,
+                "out_max_abs_err": (out.float() - ref).abs().max().item(),
+                **{f"d{n}_rel_l2": rel_l2_t(torch, a, b)
+                   for n, a, b in zip("qkv", grads, ref_grads)}}
+        if B == 2 and not masked:  # the timed case, large-v3 width
+            def fwd():
+                with torch.no_grad():
+                    attn.fused_attention(q, k, v, n_heads=H)
+            case["forward_ms"] = cuda_ms(fwd, 10)
+            case["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), gout, retain_graph=True), 10)
+            case["plain_fp32_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                ref, ref_in, gout.float(), retain_graph=True), 5)
+        cases.append(case)
+        for n in "qkv":
+            err = case[f"d{n}_rel_l2"]
+            check(math.isfinite(err) and err <= TRAIN_GRAD_REL_TOL,
+                  f"train: d{n} at {B}x{S}x{H * 64} masked={masked}: rel L2 {err}")
+        check(case["out_max_abs_err"] <= ATTN_TOL,
+              f"train: attention forward max abs err {case['out_max_abs_err']}")
+        del out, ref, grads, ref_grads
+    return cases
+
+
+def pool_of(make, seeds):
+    """Batches made in threads, one numpy generator per seed (the host's
+    synthesis releases the GIL in scipy and numpy)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        return list(ex.map(lambda s: make(np.random.default_rng(s)), seeds))
+
+
+def run_trainer(torch, name: str, train, steps: int = TRAIN_STEPS) -> dict:
+    """``train(steps) -> losses``, timed: the first step (the build of every
+    kernel and plan) apart from the rest."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = train(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    check(all(math.isfinite(x) for x in losses), f"train {name}: a loss is not finite")
+    check(last < TRAIN_FALL[name] * first,
+          f"train {name}: loss {first:.4f} -> {last:.4f}, not below "
+          f"{TRAIN_FALL[name]} of its start")
+    return {"steps": steps, "first_loss": first, "last5_loss": last,
+            "fall": last / first, "wall_s": wall, "losses": [round(x, 5) for x in losses]}
+
+
+def train_stt_step_routes(torch, attn, tr, optim, params, cfg, batch) -> dict:
+    """One STT step's loss and encoder q/k/v gradients through the kernel
+    (``KernelAttention``) and through the plain attention on the card."""
+    from infernos_tpu_torch.models import whisper as wsp
+
+    leaves = [params["enc_layers"]["attn"][n]["w"] for n in "qkv"]
+
+    def step(route):
+        with contextlib.ExitStack() as st:
+            if route is not None:
+                st.enter_context(mock.patch.object(wsp, "fused_attention", route))
+            with optim.autocast("cuda"):
+                loss, _ = tr.loss_fn(optim.forward_params(params, "cuda"), cfg, *batch)
+            grads = torch.autograd.grad(loss, leaves)
+            return loss.detach().float(), grads
+
+    def plain(q, k, v, *, n_heads, mask=None):
+        return attn.by_heads(attn._plain_attention, q, k, v, n_heads=n_heads, mask=mask)
+
+    before = attn.fused_attention.launches
+    loss_k, g_k = step(None)
+    launches = attn.fused_attention.launches - before
+    loss_p, g_p = step(plain)
+    check(attn.fused_attention.launches - before == launches,
+          "train: the plain route launched the kernel")
+    check(launches == cfg.encoder_layers,
+          f"train: one STT step launched kernel 1 {launches} times, want "
+          f"{cfg.encoder_layers} (one per encoder layer)")
+    out = {"kernel_launches": launches, "loss_kernel": float(loss_k),
+           "loss_plain": float(loss_p),
+           "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))}
+    for n, a, b in zip("qkv", g_k, g_p):
+        for layer in range(cfg.encoder_layers):
+            check(bool(torch.isfinite(a[layer]).all()) and a[layer].abs().sum().item() > 0,
+                  f"train: encoder layer {layer} {n} weight got no finite nonzero gradient")
+        out[f"d{n}_rel_l2"] = rel_l2_t(torch, a, b)
+        check(out[f"d{n}_rel_l2"] <= TRAIN_STEP_REL_TOL,
+              f"train: the kernel route's {n} gradient is {out[f'd{n}_rel_l2']} from the plain's")
+    check(out["loss_rel_err"] <= TRAIN_LOSS_REL_TOL,
+          f"train: the kernel route's loss {loss_k} vs the plain route's {loss_p}")
+    return out
+
+
+@contextlib.contextmanager
+def data_override(name: str, path: str):
+    key = f"INFERNOS_TINY_DATA_{name.upper()}"
+    old = os.environ.get(key)
+    os.environ[key] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = old
+
+
+def phase_train(torch, attn):
+    """Phase ``train``: (a) ``KernelAttention``'s gradients against fp32
+    autograd of the plain attention on the card, large-v3 and tiny widths;
+    (b) one tiny STT training step through the kernel against the same
+    step through the plain attention (2 launches a step); (c) every trainer
+    (STT, SpeechT5, HiFi-GAN, LLM, VAD, AmendNet) for ``TRAIN_STEPS`` steps on
+    a pool of two pre-built batches, its loss finite and falling, its
+    checkpoint saved under ``infernos_tpu_torch/build/trained`` and served
+    once through the port's loaders.  Returns kernel 1's launches in the STT
+    trainer's run (counted from 0 before it)."""
+    from infernos_tpu_torch.models import amendnet, qwen, tiny_real, vad
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.serving import stt_engine as stt
+    from infernos_tpu_torch.serving import tts_engine as tts
+    from infernos_tpu_torch.tools import optim
+    from infernos_tpu_torch.tools import train_amendnet as tr_amd
+    from infernos_tpu_torch.tools import train_tiny_llm as tr_llm
+    from infernos_tpu_torch.tools import train_tiny_stt as tr_stt
+    from infernos_tpu_torch.tools import train_tiny_tts as tr_tts
+    from infernos_tpu_torch.tools import train_vad as tr_vad
+    from infernos_tpu_torch.utils.platform import card_info
+
+    t_phase = time.perf_counter()
+    grads = train_attention_grads(torch, attn)
+    dev = "cuda"
+
+    def gen():
+        return torch.Generator().manual_seed(TRAIN_SEED)
+
+    out, served = {}, {}
+    seeds = (TRAIN_SEED, TRAIN_SEED + 1)
+    t0 = time.perf_counter()
+    stok, ttok = tr_stt.build_tokenizer(), tr_tts.build_tokenizer()
+    speakers = tr_tts.speaker_bank()
+    stt_pool = pool_of(lambda r: tr_stt.make_batch(r, stok, 8), seeds)
+    tts_ex = pool_of(lambda r: [tr_tts.make_example(r, ttok, speakers) for _ in range(4)], seeds)
+    tts_pool = [tr_tts.assemble(e) for e in tts_ex]
+    voc_pool = [tr_tts.voc_batch(np.random.default_rng(s), e) for s, e in zip(seeds, tts_ex)]
+    llm_pool = pool_of(lambda r: tr_llm.make_batch(r, tr_llm.ByteTokenizer(), 8), seeds)
+    vcfg_vad, acfg = vad.VADConfig(), amendnet.AmendNetConfig()
+    vad_pool = pool_of(lambda r: tr_vad.make_batch(r, 16, 12, vcfg_vad.window), seeds)
+    amd_pool = pool_of(lambda r: tr_amd.make_batch(r, 32, acfg), seeds)
+    pools_s = time.perf_counter() - t0
+
+    # (b) one STT step, kernel route against plain route
+    scfg = tr_stt.tiny_config(stok)
+    sparams = optim.trainable(wsp.init_params(scfg, gen(), dev))
+    routes = train_stt_step_routes(torch, attn, tr_stt, optim, sparams, scfg,
+                                   optim.to_device(stt_pool[0], dev))
+
+    # (c) each trainer on its pool, saved and served
+    opt = tr_stt.make_optimizer(sparams, 3e-4, TRAIN_STEPS)
+    attn.fused_attention.launches = 0
+    out["tiny_stt"] = run_trainer(torch, "tiny_stt", lambda n: tr_stt.train(
+        sparams, scfg, opt, lambda i: stt_pool[i % 2], n, dev, log_every=0))
+    train_launches = attn.fused_attention.launches
+    check(train_launches == scfg.encoder_layers * TRAIN_STEPS,
+          f"train: the STT trainer launched kernel 1 {train_launches} times in "
+          f"{TRAIN_STEPS} steps")
+    path = optim.default_out("tiny_stt")
+    tr_stt.save(path, sparams, scfg, stok)
+    with data_override("tiny_stt", path):
+        p, c, tok, ecfg = tiny_real.load_tiny_stt(dev)
+    check(p["enc_layers"]["attn"]["q"]["w"].dtype == torch.bfloat16, "train: STT not bf16")
+    eng = stt.STTEngine(p, c, ecfg, detokenize=tok.detokenize, device=dev)
+    got = []
+    audio, _ = tr_stt.make_utterance(np.random.default_rng(3), n_words=(2, 3), lang="en")
+    eng.submit(stt.STTRequest(audio=audio, text_cb=got.append, lang="en"))
+    while eng.step():
+        pass
+    check(len(got) == 1, "train: the retrained STT did not answer")
+    served["tiny_stt"] = {"tokens": len(got[0].tokens), "text": got[0].text}
+
+    tcfg = tr_tts.tiny_config(ttok.vocab_size)
+    tparams = optim.trainable(tr_tts.init_t5(tcfg, TRAIN_SEED, dev))
+    topt = tr_tts.t5_optimizer(tparams, 3e-4, TRAIN_STEPS)
+    out["tiny_tts"] = run_trainer(torch, "tiny_tts", lambda n: tr_tts.train_t5(
+        tparams, tcfg, topt, lambda i: tts_pool[i % 2], n, dev, TRAIN_SEED, log_every=0))
+    vcfg = tr_tts.voc_config()
+    vparams = optim.trainable(tr_tts.init_vocoder(
+        vcfg, TRAIN_SEED, [x for e in tts_ex for x in e], dev))
+    vopt = tr_tts.voc_optimizer(vparams, 2e-4, TRAIN_STEPS)
+    out["vocoder"] = run_trainer(torch, "vocoder", lambda n: tr_tts.train_vocoder(
+        vparams, vcfg, vopt, lambda i: voc_pool[i % 2], n, dev, log_every=0))
+    path = tr_tts.save_common(optim.default_out("tiny_tts"), ttok)
+    tr_tts.save_t5(path, tparams, tcfg)
+    tr_tts.save_vocoder(path, vparams, vcfg)
+    with data_override("tiny_tts", path):
+        tp, tc, vp, vc, tk, table = tiny_real.load_tiny_tts("hifigan", dev)
+    check(table.shape == (tr_tts.N_SPEAKERS, tr_tts.SPK_DIM), "train: speaker table")
+    teng = tts.TTSEngine(tp, tc, vp, vc, tts.TTSEngineConfig(
+        batch_slots=1, max_text_tokens=48, max_steps=32, stop_threshold=0.5,
+        dtype=torch.bfloat16), device=dev)
+    chunks, done = [], []
+    teng.start_session(np.asarray(tk("hello now"), np.int32), table[0],
+                       lambda a: done.append(1) if a is None else chunks.append(a))
+    for _ in range(200):
+        teng.step()
+        if done:
+            break
+    check(bool(done) and chunks and all(np.isfinite(c).all() for c in chunks),
+          "train: the retrained TTS said nothing finite")
+    served["tiny_tts"] = {"chunks": len(chunks), "samples": int(sum(len(c) for c in chunks))}
+
+    lcfg = tr_llm.tiny_config()
+    lparams = optim.trainable(qwen.init_params(lcfg, gen(), dev))
+    lopt = tr_llm.make_optimizer(lparams, 3e-4, TRAIN_STEPS)
+    out["tiny_llm"] = run_trainer(torch, "tiny_llm", lambda n: tr_llm.train(
+        lparams, lcfg, lopt, lambda i: llm_pool[i % 2], n, dev, log_every=0))
+    path = optim.default_out("tiny_llm")
+    tr_llm.save(path, lparams, lcfg)
+    with data_override("tiny_llm", path):
+        lp, lc = tiny_real.load_tiny_llm(dev)
+    reply = tr_llm.greedy_replies(lp, lc, tr_llm.ByteTokenizer(),
+                                  [[{"role": "user", "content": "hello good morning"}]],
+                                  max_new=8, device=dev)
+    served["tiny_llm"] = {"reply": reply[0]}
+
+    vdp = optim.trainable(vad.init_params(vcfg_vad, gen(), dev))
+    out["vad"] = run_trainer(torch, "vad", lambda n: tr_vad.train(
+        vdp, vcfg_vad, tr_vad.make_optimizer(vdp, 1e-3), lambda i: vad_pool[i % 2], n, dev,
+        log_every=0))
+    wv = vad.load_pretrained(dev, tr_vad.save(optim.default_out("vad"), vdp))
+    probs = vad.NeuralVAD(wv, vcfg_vad, 2, device=dev)(vad_pool[0][0][:2, 0])
+    check(np.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all(),
+          "train: the retrained VAD gave no probabilities")
+    served["vad"] = {"probs": probs.tolist()}
+
+    amp = optim.trainable(amendnet.init_params(acfg, gen(), dev))
+    out["amendnet"] = run_trainer(torch, "amendnet", lambda n: tr_amd.train(
+        amp, acfg, tr_amd.make_optimizer(amp, 3e-4), lambda i: amd_pool[i % 2], n, dev,
+        log_every=0))
+    wa = amendnet.load_pretrained(dev, path=tr_amd.save(optim.default_out("amendnet"), amp))
+    mel, dirty, _ = optim.to_device(amd_pool[0], dev)
+    amended = amendnet.apply(wa, acfg, mel[:2], dirty[:2])
+    check(bool(torch.isfinite(amended).all()), "train: the retrained AmendNet is not finite")
+    served["amendnet"] = {"samples": int(amended.shape[1])}
+
+    emit("train", card=card_info(), tol=TRAIN_GRAD_REL_TOL, step_tol=TRAIN_STEP_REL_TOL,
+         precision="fp32 masters and AdamW state, bf16 forward (autocast over a bf16 copy)",
+         attention=grads, stt_step_routes=routes, pools_s=pools_s,
+         trainers={k: {**v, "step_ms": 1e3 * v["wall_s"] / v["steps"]} for k, v in out.items()},
+         served=served, stt_train_kernel_launches=train_launches,
+         wall_s=time.perf_counter() - t_phase)
+    return train_launches
+
+
 # -- last phase: what the card runs for one attention call and one encode -----
 
 def device_launches(torch, fn) -> int:
@@ -5116,7 +5511,8 @@ def _remote_call_alone(torch, attn):
 
 # the phases ``--phases`` runs alone after the build
 ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone,
-                "parallel": lambda torch, attn: phase_parallel(torch)}
+                "parallel": lambda torch, attn: phase_parallel(torch),
+                "train": phase_train}
 
 
 def main(argv=None) -> int:
@@ -5131,7 +5527,7 @@ def main(argv=None) -> int:
                          "result line)")
     ap.add_argument("--phases", metavar="NAME,...",
                     help="run only these of the bench phases, stt_ladder, ckpt_port, "
-                         "remote_call and parallel, in the order given, after the build "
+                         "remote_call, parallel and train, in the order given, after the build "
                          "(prints no result line): " + ", ".join(ALONE_PHASES))
     ap.add_argument("--ckpt-seed", type=int, default=CKPT_SEED,
                     help="the generator seed of ckpt_port's HF-layout weights "
@@ -5194,6 +5590,7 @@ def main(argv=None) -> int:
         return 0
     stt_launches, stt_params = phase_stt(torch, attn, args.profile)
     tts_launches = phase_tts(torch, ts, args.profile)
+    wide_launches = tts_engine_wide(torch, ts)
     check(ts.fused_decode_step.launches_int8 == 0,
           "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
@@ -5219,6 +5616,7 @@ def main(argv=None) -> int:
     echo_attn, echo_bf16 = phase_echo(torch)
     prof_attn, prof_bf16 = phase_ramp_profile(torch)
     ckpt_attn, ckpt_bf16 = phase_ckpt_port(torch, attn)
+    train_attn = phase_train(torch, attn)
     phase_device_launches(torch, attn, step_calls, stt_params)
     # each path was driven with the counts at 0 before it and read after it
     # (the daemons' calls and the LT benches' levels in their own
@@ -5231,11 +5629,11 @@ def main(argv=None) -> int:
                "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
                "loopback": loop_attn, "stt_ladder": ladder_attn, "sttbench": sttb_attn,
                "aia_bench": aiab_attn, "echo": echo_attn, "ramp_profile": prof_attn,
-               "ckpt_port": ckpt_attn,
+               "ckpt_port": ckpt_attn, "train": train_attn,
                **{f"parallel_{k}": v["stt"]["attention"] for k, v in par.items()}}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
-    by_path = {"tts": tts_launches, "turn": turn_bf16, "rtp_call": call_bf16,
+    by_path = {"tts": tts_launches, "tts_40_slots": wide_launches, "turn": turn_bf16, "rtp_call": call_bf16,
                "sip_call": sip_bf16, "remote_call": rem_bf16, "daemon": dmn_bf16,
                "aia_call": aia_bf16,
                "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,

@@ -69,3 +69,25 @@ def log_mel(wav: torch.Tensor, n_mels: int = 128) -> torch.Tensor:
     floor = log_spec.amax(dim=(1, 2), keepdim=True) - 8.0
     log_spec = torch.maximum(log_spec, floor)
     return (log_spec + 4.0) / 4.0
+
+
+def log_mel_np(wav: np.ndarray, n_mels: int = 128) -> np.ndarray:
+    """The same log-mel on the host in numpy (a copy of the reference's
+    ``log_mel_np``): the trainers' batches are built with it, bit for bit
+    the reference trainers' batches."""
+    if wav.ndim == 1:
+        wav = wav[None, :]
+    window = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(N_FFT) / N_FFT)).astype(np.float32)
+    fb = mel_filterbank(n_mels)
+    pad = N_FFT // 2
+    x = np.pad(wav, ((0, 0), (pad, pad)), mode="reflect")
+    n_frames = 1 + (x.shape[1] - N_FFT) // HOP
+    idx = np.arange(N_FFT)[None, :] + HOP * np.arange(n_frames)[:, None]
+    frames = x[:, idx] * window[None, None, :]
+    spec = np.fft.rfft(frames, axis=-1)
+    power = (np.abs(spec) ** 2)[:, :-1, :]
+    mel = np.einsum("mf,btf->bmt", fb, power)
+    log_spec = np.log10(np.maximum(mel, 1e-10))
+    floor = log_spec.max(axis=(1, 2), keepdims=True) - 8.0
+    log_spec = np.maximum(log_spec, floor)
+    return ((log_spec + 4.0) / 4.0).astype(np.float32)

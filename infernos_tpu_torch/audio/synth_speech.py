@@ -6,7 +6,9 @@ A copy of ``synth_speech`` and its helpers from ``tools/synth_speech.py``
 port's benches make their speech without the reference's tools: formant
 pseudo-speech (a glottal pulse train through vowel-like resonators,
 syllabic gating, a voiced/unvoiced mix) at 8 kHz.  The same ``rng`` gives
-the same samples as the tool.
+the same samples as the tool.  ``synth_noise`` (the telephone-noise zoo) and
+``make_example`` (speech over noise at a random SNR, with exact per-window
+labels) are copies too: the port's VAD trainer draws its batches from them.
 """
 
 from __future__ import annotations
@@ -82,3 +84,77 @@ def synth_speech(rng: np.random.Generator, seconds: float, sr: int = SR):
     out = sig.lfilter(b, a, out).astype(np.float32)
     peak = np.abs(out).max() + 1e-9
     return (out / peak).astype(np.float32), active
+
+
+def synth_noise(rng: np.random.Generator, seconds: float, sr: int = SR,
+                kind: str = None) -> np.ndarray:
+    """One of the telephone-noise zoo, peak-normalized."""
+    n = int(seconds * sr)
+    kind = kind or rng.choice(
+        ["white", "pink", "hum", "tone", "dtmf", "clicks", "babble", "brown"])
+    if kind == "white":
+        x = rng.standard_normal(n)
+    elif kind == "brown":
+        x = np.cumsum(rng.standard_normal(n))
+    elif kind == "pink":
+        spec = np.fft.rfft(rng.standard_normal(n))
+        f = np.maximum(np.fft.rfftfreq(n, 1 / sr), 1.0)
+        x = np.fft.irfft(spec / np.sqrt(f), n)
+    elif kind == "hum":
+        base = rng.choice([50.0, 60.0])
+        t = np.arange(n) / sr
+        x = sum(np.sin(2 * np.pi * base * h * t + rng.uniform(0, 6)) / h
+                for h in range(1, 6))
+        x += 0.1 * rng.standard_normal(n)
+    elif kind == "tone":
+        t = np.arange(n) / sr
+        x = np.sin(2 * np.pi * rng.uniform(300, 3000) * t)
+        if rng.random() < 0.5:  # AM warble
+            x *= 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.3, 4) * t)
+    elif kind == "dtmf":
+        lo = rng.choice([697, 770, 852, 941])
+        hi = rng.choice([1209, 1336, 1477])
+        t = np.arange(n) / sr
+        gate = (np.sin(2 * np.pi * rng.uniform(1, 3) * t) > 0).astype(float)
+        x = gate * (np.sin(2 * np.pi * lo * t) + np.sin(2 * np.pi * hi * t))
+    elif kind == "clicks":
+        x = np.zeros(n)
+        for _ in range(max(1, int(seconds * rng.uniform(2, 12)))):
+            p = rng.integers(0, n - 40)
+            x[p : p + 40] += rng.standard_normal(40) * np.hanning(40) * 5
+        x += 0.05 * rng.standard_normal(n)
+    elif kind == "babble":
+        # distant multi-talker: sum of speech synths, heavily smoothed --
+        # a VAD should NOT fire on far-field babble
+        x = np.zeros(n, np.float32)
+        for _ in range(6):
+            s, _ = synth_speech(rng, seconds, sr)
+            x += s
+        b, a = sig.butter(2, 1200 / (sr / 2))
+        x = sig.lfilter(b, a, x)
+    peak = np.abs(x).max() + 1e-9
+    return (x / peak).astype(np.float32)
+
+
+def make_example(rng: np.random.Generator, seconds: float, window: int,
+                 sr: int = SR, p_speech: float = 0.65):
+    """(audio [n], window labels [n//window]) -- speech mixed over noise at a
+    random SNR, or pure noise/silence."""
+    n = int(seconds * sr)
+    noise = synth_noise(rng, seconds, sr)
+    noise_gain = 10 ** (rng.uniform(-45, -12) / 20)
+    audio = noise * noise_gain
+    mask = np.zeros(n, bool)
+    if rng.random() < p_speech:
+        speech, mask = synth_speech(rng, seconds, sr)
+        snr_db = rng.uniform(-2, 30)
+        sp = np.sqrt(np.mean(speech[mask] ** 2) + 1e-12)
+        npow = np.sqrt(np.mean(audio**2) + 1e-12)
+        audio = audio + speech * (npow / sp) * 10 ** (snr_db / 20)
+    peak = np.abs(audio).max()
+    if peak > 1.0:
+        audio = audio / peak
+    # per-window labels: a window is speech when >=50% of it is active
+    nw = n // window
+    labels = mask[: nw * window].reshape(nw, window).mean(axis=1) >= 0.5
+    return audio[: nw * window].astype(np.float32), labels.astype(np.float32)

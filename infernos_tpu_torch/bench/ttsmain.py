@@ -20,8 +20,8 @@ Port of ``infernos_tpu/bench/ttsmain.py``.  What differs, and why:
   .zeros_init``, no fp32 copy): weight values are irrelevant to serving
   throughput.  ``BENCH_INT8`` quantizes the decoder through
   ``models/quant.py``, which runs the step kernel's int8 mode.
-- ``BENCH_SLOTS`` is at most the step kernel's ``MAX_B`` on the card (the
-  engine refuses more).
+- ``BENCH_SLOTS`` may exceed the step kernel's ``MAX_B`` (32) on the card:
+  a step of more slots is one launch per group of at most 32 slots.
 - ``detail`` names the card (``utils.platform.card_info``).  No baseline
   ratio is printed: the reference's figures were measured on other
   hardware.  ``BENCH_MODE=streams`` prints the throughput probe instead.

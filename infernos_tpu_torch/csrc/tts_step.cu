@@ -465,6 +465,7 @@ struct Params {
   unsigned* bar; // grid barrier: arrivals, exits
   long long* trace;  // TTS_TRACE builds: [grid, 8 L + 1, 8] clock64()
   int L, B, H, T, S, F, x_bf16;
+  int Bc;  // slots of the caches' layer: x's B slots start at the caches' pointers
   float eps;
   GemmPlan plan[N_GEMMS];
   int groups[N_GEMMS], items[N_GEMMS], prefix[N_GEMMS], per_layer;
@@ -852,7 +853,7 @@ template <typename WT>
 __global__ void __launch_bounds__(NT, 1) step_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int D = p.H * DH, B = p.B, H = p.H;
-  const size_t self_l = (size_t)B * H * p.T * DH, cross_l = (size_t)B * H * p.S * DH;
+  const size_t self_l = (size_t)p.Bc * H * p.T * DH, cross_l = (size_t)p.Bc * H * p.S * DH;
 
   Ctx c;
   c.ring = smem;
@@ -970,7 +971,9 @@ __global__ void __launch_bounds__(NT, 1) step_kernel(const Params p) {
 
 // ptrs: x, out, pos, mask, then the 6 weights, 6 biases, 6 scales (null in
 // bf16 mode), 6 LN parameters, self_k, self_v, cross_k, cross_v, hbuf, y, a,
-// t, mid, part, stats, counters, bar.  dims: L, B, H, T, S, F, x_bf16.
+// t, mid, part, stats, counters, bar.  dims: L, B, H, T, S, F, x_bf16, Bc (the
+// caches hold Bc slots a layer; the B slots of this step start at their
+// pointers, so a group of slots runs on a slot slice of larger caches).
 // plan: (G, splits) per GEMM in the order qkv, so, cq, co, w1, w2, then
 // nslot, slot_bytes, xs_stride, work_bytes, smem_bytes (ops/tts_step.py
 // step_plan); grid: blocks, all resident.
@@ -1010,9 +1013,10 @@ int launch(const void* const* ptrs, const int* dims, const int* plan, float eps,
   p.S = dims[4];
   p.F = dims[5];
   p.x_bf16 = dims[6];
+  p.Bc = dims[7];
   p.eps = eps;
   const int D = p.H * DH;
-  if (p.B < 1 || p.B > MAXB || D > MAXD || p.F % 16 || p.T > MAXT || p.S > MAXT)
+  if (p.B < 1 || p.B > MAXB || p.Bc < p.B || D > MAXD || p.F % 16 || p.T > MAXT || p.S > MAXT)
     return (int)cudaErrorInvalidValue;
   p.per_layer = 0;
   for (int g = 0; g < N_GEMMS; ++g) {

@@ -12,6 +12,13 @@ launch per call and no other work on the card.
 
 The kernel is compute-bound at whisper-large-v3 width (see the source note
 in ``csrc/attention.cu``): 11.5 GFLOP per call, 32 calls per encode.
+
+Reverse mode, as the reference's ``custom_vjp`` has it: the forward is the
+kernel and the backward recomputes the plain attention and differentiates
+it (:class:`KernelAttention`).  ``fused_attention`` on the card takes that
+route only when grad mode is on and an input requires grad, so serving
+saves nothing and launches exactly as before.  The kernel stays bf16 only:
+a trainer hands it bf16 projections (``tools/optim.py``).
 """
 
 from __future__ import annotations
@@ -115,11 +122,41 @@ def _kernel_attention(q, k, v, mask_add=None, *, n_heads: int = 1):
     return out
 
 
+class KernelAttention(torch.autograd.Function):
+    """The kernel's forward with the reference's backward
+    (``_pallas_attention_bwd``): the plain attention recomputed in fp32 from
+    the saved inputs and differentiated; the mask gets no gradient, where
+    the reference returns a zero cotangent.
+
+    ``forward_fn`` is the forward (default :func:`_kernel_attention`); the
+    CPU tests pass :func:`by_heads` over :func:`_plain_attention` to run
+    the backward without a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_add, n_heads, forward_fn=None):
+        fwd = forward_fn or _kernel_attention
+        ctx.save_for_backward(q, k, v, mask_add)
+        ctx.n_heads = n_heads
+        return fwd(q, k, v, mask_add, n_heads=n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask_add = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+            out = by_heads(_plain_attention, qf, kf, vf, n_heads=ctx.n_heads,
+                           mask_add=mask_add)
+            dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), g.float())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def by_heads(core, q, k, v, *, n_heads: int,
-             mask: Optional[torch.Tensor] = None):
+             mask: Optional[torch.Tensor] = None,
+             mask_add: Optional[torch.Tensor] = None):
     """Run ``core`` (``[BH, S, Dh]`` contract, as :func:`_plain_attention`)
-    on ``[B, S, D]`` inputs: split heads, build the additive key mask, merge.
-    This is the CPU path's layout work; the kernel needs none of it."""
+    on ``[B, S, D]`` inputs: split heads, build the additive key mask (from
+    ``mask``, or ``mask_add`` ``[B, S]`` as given), merge.  This is the CPU
+    path's layout work; the kernel needs none of it."""
     B, S, D = q.shape
     Dh = D // n_heads
 
@@ -127,10 +164,10 @@ def by_heads(core, q, k, v, *, n_heads: int,
         return (x.reshape(B, S, n_heads, Dh).transpose(1, 2)
                 .reshape(B * n_heads, S, Dh).contiguous())
 
-    if mask is None:
-        mask_add = torch.zeros((B, S), dtype=torch.float32, device=q.device)
-    else:
+    if mask is not None:
         mask_add = _mask_add(mask)
+    elif mask_add is None:
+        mask_add = torch.zeros((B, S), dtype=torch.float32, device=q.device)
     mask_bh = mask_add.repeat_interleave(n_heads, dim=0).contiguous()
     out = core(split(q), split(k), split(v), mask_bh)
     return out.reshape(B, n_heads, S, Dh).transpose(1, 2).reshape(B, S, D)
@@ -144,12 +181,15 @@ def fused_attention(q, k, v, *, n_heads: int,
     (True = valid) or None.  Returns ``[B, S, D]``.  A CUDA tensor goes to
     the kernel as it is -- no head split, no transposed copy, no mask tensor
     when ``mask`` is None -- and the kernel raises on what it does not take;
-    a CPU tensor goes to the plain version.
+    a CPU tensor goes to the plain version.  On the card with grad mode on
+    and an input that requires grad, the kernel runs inside
+    :class:`KernelAttention`, which gives it the reference's backward.
     """
     if q.device.type == "cuda":
-        return _kernel_attention(
-            q, k, v, None if mask is None else _mask_add(mask),
-            n_heads=n_heads)
+        mask_add = None if mask is None else _mask_add(mask)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return KernelAttention.apply(q, k, v, mask_add, n_heads)
+        return _kernel_attention(q, k, v, mask_add, n_heads=n_heads)
     return by_heads(_plain_attention, q, k, v, n_heads=n_heads, mask=mask)
 
 

@@ -26,11 +26,17 @@ fp32 scale per output channel, and the step computes
 version.  There is no route from a quantized tree to the bf16 kernels by
 dequantizing.  Each mode counts its own launches
 (``fused_decode_step.launches`` and ``.launches_int8``).
+
+One launch takes at most ``MAX_B`` slots.  A step of more slots runs the
+kernel once per group of at most ``MAX_B`` slots, in slot order, on the
+caller's stream (:func:`run_groups`): each launch reads its slots of the
+caches in place, so ``launches_per_step(B)`` is ``ceil(B / MAX_B)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Optional
 
@@ -47,12 +53,19 @@ _GEMMS = ("wqkv", "wso", "wcq", "wco", "w1", "w2")  # the kernel's order
 _BIASES = ("bqkv", "bso", "bcq", "bco", "b1", "b2")
 _SCALES = ("sqkv", "sso", "scq", "sco", "s1", "s2")  # int8 mode only
 _LNS = ("ln1g", "ln1b", "ln2g", "ln2b", "ln3g", "ln3b")
-LAUNCHES_PER_STEP = 1  # CUDA launches of one kernel step, both modes
-MAX_B = 32  # most slots one step takes
+MAX_B = 32  # most slots one launch takes
 MAX_T = 4096  # longest self or cross cache the attention phases take
 HEAD_DIM = 64
 TILE = 16  # a weight tile is 16 output columns x 16 input rows
 MAX_SPLITS = 8  # most K splits of one product (the kernel's partial-sum registers)
+
+
+_CACHES = ("self_k", "self_v", "cross_k", "cross_v")
+
+
+def launches_per_step(B: int) -> int:
+    """Kernel launches of one step of ``B`` slots: one per slot group."""
+    return -(-B // MAX_B)
 
 
 # -- the panel layout -------------------------------------------------------------
@@ -366,8 +379,8 @@ def _check_step_args(fw: PackedWeights, x, cache, pos, enc_mask):
     S = cache.cross_k.shape[3]
     D = H * Dh
     F = fw["b1"].shape[1]
-    if not 1 <= B <= MAX_B:
-        raise ValueError(f"tts_step kernel: {B} slots; it takes 1 to {MAX_B}")
+    if B < 1:
+        raise ValueError(f"tts_step kernel: {B} slots; it takes at least 1")
     if T > MAX_T or S > MAX_T:
         raise ValueError(f"tts_step kernel: caches of T {T}, S {S}; it takes "
                          f"at most {MAX_T}")
@@ -432,12 +445,15 @@ def _step_scratch(dev, stream: int, B: int, D: int, F: int,
 
 
 def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
-            trace: Optional[torch.Tensor] = None):
+            trace: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None):
     """Call the C entry point ``fn`` (of ``fw``'s mode) with ``plan`` on
-    arguments :func:`_check_step_args` has passed; returns the hidden state
-    (a new tensor in x's dtype).  ``trace`` goes to a build with
-    ``-DTTS_TRACE`` (``ops/tts_step_ablate.py``)."""
+    arguments :func:`_check_step_args` has passed, or on a slot group of
+    them (:func:`run_groups`: the caches a slot slice of contiguous caches);
+    returns the hidden state, written to ``out`` or to a new tensor in x's
+    dtype.  ``trace`` goes to a build with ``-DTTS_TRACE``
+    (``ops/tts_step_ablate.py``)."""
     Lyr, B, H, T, Dh = cache.self_k.shape
+    bc = cache.self_k.stride(0) // cache.self_k.stride(1)  # the caches' slots
     S, D, F = cache.cross_k.shape[3], H * Dh, fw["b1"].shape[1]
     int8w = is_int8(fw)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_int,
@@ -445,7 +461,7 @@ def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sc = _step_scratch(x.device, stream, B, D, F, plan)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x) if out is None else out
     scales = [fw[n] if int8w else None for n in _SCALES]
     ptrs = [x, out, pos, enc_mask, *(fw[n] for n in _GEMMS),
             *(fw[n] for n in _BIASES), *scales, *(fw[n] for n in _LNS),
@@ -454,7 +470,7 @@ def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
                               "counters", "bar")), *([trace] if trace is not None else [])]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(
         *(None if t is None else t.data_ptr() for t in ptrs))
-    dims = (ctypes.c_int * 7)(Lyr, B, H, T, S, F, int(x.dtype == torch.bfloat16))
+    dims = (ctypes.c_int * 8)(Lyr, B, H, T, S, F, int(x.dtype == torch.bfloat16), bc)
     ints = plan_ints(plan)
     rc = fn(c_ptrs, dims, (ctypes.c_int * len(ints))(*ints),
             float(cfg.layer_norm_eps), plan["grid"], stream)
@@ -462,13 +478,33 @@ def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
     return out
 
 
+def run_groups(step_group, x, cache, pos, enc_mask=None):
+    """Run ``step_group(x, cache, pos, enc_mask, out)`` once per group of at
+    most ``MAX_B`` slots, in slot order; returns the ``[B, 1, D]`` hidden.
+
+    Each call gets its slots' rows of x, pos and the mask (contiguous
+    slices), the caches' slot slice (views that write through to the
+    caches) and the slice of the output it must write.  Up to ``MAX_B``
+    slots that is one call on the whole tensors."""
+    B = x.shape[0]
+    out = torch.empty_like(x)
+    for b0 in range(0, B, MAX_B):
+        sl = slice(b0, min(B, b0 + MAX_B))
+        group = dataclasses.replace(
+            cache, **{n: getattr(cache, n)[:, sl] for n in _CACHES})
+        step_group(x[sl], group, pos[sl], None if enc_mask is None else enc_mask[sl],
+                   out[sl])
+    return out
+
+
 def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
-    """One launch of the step kernel; same contract as
+    """The step kernel on every slot; same contract as
     :func:`_plain_decode_step`.  int8 codes go to ``tts_decode_step_int8``
     with their scales, bf16 weights to ``tts_decode_step``; anything else
     raises.  x is read as given and the hidden state comes back in x's
-    dtype; pos is read as int64 and the bool mask as it is.  The launch is
-    cooperative, one block per SM."""
+    dtype; pos is read as int64 and the bool mask as it is.  Each launch is
+    cooperative, one block per SM, and takes a group of at most ``MAX_B``
+    slots (:func:`run_groups`); each counts once."""
     Lyr, B, H, T, S, D, F = _check_step_args(fw, x, cache, pos, enc_mask)
     dev = x.device
     tensors = [x, pos, *(getattr(cache, n) for n in ("self_k", "self_v", "cross_k",
@@ -481,13 +517,16 @@ def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
     int8w = is_int8(fw)
     lib = build.load("tts_step")
     fn = lib.tts_decode_step_int8 if int8w else lib.tts_decode_step
-    out = _launch(fn, fw, cfg, x, cache, pos, enc_mask,
-                  step_plan(B, D, F, int8w, _sm_count(dev)))
-    if int8w:
-        fused_decode_step.launches_int8 += 1
-    else:
-        fused_decode_step.launches += 1
-    return out
+
+    def launch_group(xg, group, pg, mg, out):
+        _launch(fn, fw, cfg, xg, group, pg, mg,
+                step_plan(xg.shape[0], D, F, int8w, _sm_count(dev)), out=out)
+        if int8w:
+            fused_decode_step.launches_int8 += 1
+        else:
+            fused_decode_step.launches += 1
+
+    return run_groups(launch_group, x, cache, pos, enc_mask)
 
 
 def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
@@ -498,8 +537,9 @@ def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
     enc_mask ``[B, S]`` bool or None.  Returns the ``[B, 1, D]`` hidden.
 
     On the card x must be fp32 or bf16, pos int64 and enc_mask bool, as the
-    engine gives them, and B at most 32 with T and S at most 4096; anything
-    else raises ValueError.  The CPU path is more lenient (any integer pos,
+    engine gives them, with T and S at most 4096; anything else raises
+    ValueError.  More than ``MAX_B`` slots take one launch per group of at
+    most ``MAX_B`` (:func:`launches_per_step`).  The CPU path is more lenient (any integer pos,
     a mask that ``.bool()`` reads); callers that may run on either device
     keep to the card's terms.
 
@@ -514,5 +554,5 @@ def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
     return _plain_decode_step(fw, cfg, x, cache, pos, enc_mask)
 
 
-fused_decode_step.launches = 0  # bf16 kernel steps (one launch each)
-fused_decode_step.launches_int8 = 0  # int8 kernel steps (one launch each)
+fused_decode_step.launches = 0  # bf16 kernel launches (one per slot group of a step)
+fused_decode_step.launches_int8 = 0  # int8 kernel launches (one per slot group of a step)

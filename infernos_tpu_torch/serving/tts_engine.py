@@ -25,9 +25,11 @@ config's type, as in the reference: a ``GriffinLimConfig`` vocodes with
 ``audio/griffinlim.py`` (the tiny-real default), a ``HifiGanConfig`` with
 ``models/hifigan.py``.
 
-On the card the step kernel takes 1 to ``ops.tts_step.MAX_B`` slots, so a
-CUDA engine of more slots is refused at construction (:func:`check_slots`);
-the plain CPU path takes any width, as the reference does.
+An engine takes any number of slots, as the reference does.  On the card
+one step kernel launch takes at most ``ops.tts_step.MAX_B`` slots, so a
+step of more slots is one launch per group of at most ``MAX_B``
+(``ops.tts_step.run_groups``); a CUDA engine of no slots is refused at
+construction (:func:`check_slots`).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ..audio import griffinlim as gl
 from ..models import amendnet as amd
 from ..models import hifigan as hfg
 from ..models import speecht5 as st5
-from ..ops.tts_step import MAX_B, fused_decode_step, pack_fused_weights
+from ..ops.tts_step import fused_decode_step, pack_fused_weights
 from ..utils.logging import get_logger
 from ..utils.metrics import metrics
 from ..utils.platform import default_device
@@ -109,11 +111,12 @@ class _Session:
 
 def check_slots(batch_slots: int, device: torch.device) -> None:
     """Refuse a slot count the step kernel cannot take on ``device``: on
-    a CUDA device it takes 1 to ``MAX_B`` slots; the CPU takes any."""
-    if torch.device(device).type == "cuda" and not 1 <= batch_slots <= MAX_B:
+    a CUDA device it takes 1 slot or more (more than ``MAX_B`` in groups);
+    the plain CPU path takes any."""
+    if torch.device(device).type == "cuda" and batch_slots < 1:
         raise ValueError(
             f"TTSEngine: batch_slots {batch_slots}: the decoder-step kernel "
-            f"takes 1 to {MAX_B} slots on the card")
+            f"takes 1 slot or more on the card")
 
 
 class TTSEngine:

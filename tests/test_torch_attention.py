@@ -198,6 +198,7 @@ def test_cuda_branch_builds_no_mask_and_no_copies(monkeypatch):
 
     class OnCard:  # a tensor stand-in that says it lies on the card
         device = torch.device("cuda", 0)
+        requires_grad = False  # serving: the kernel alone, no autograd node
 
     q, k, v = OnCard(), OnCard(), OnCard()
     monkeypatch.setattr(attn, "_kernel_attention", fake_kernel)

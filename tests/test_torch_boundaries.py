@@ -103,7 +103,9 @@ def test_every_submodule_imports_without_jax_or_reference():
               "bench.aiabench", "bench.echo", "models.checkpoint", "models.npz_io",
               "models.convert", "models.amendnet", "serving.speakers",
               "tools.port_checkpoints", "parallel", "parallel.mesh", "parallel.ranks",
-              "parallel.budget", "parallel.dryrun"):
+              "parallel.budget", "parallel.dryrun", "tools.optim", "tools.train_tiny_stt",
+              "tools.train_tiny_tts", "tools.train_tiny_llm", "tools.train_vad",
+              "tools.train_amendnet", "tools.check_bilingual"):
         assert f"infernos_tpu_torch.{m}" in _modules()
 
 
@@ -361,13 +363,17 @@ def test_native_engine_source_is_the_reference_engine():
 
 
 def test_cuda_tts_engine_refuses_more_slots_than_the_kernel_takes():
+    """The kernel takes any slot count in groups of at most ``MAX_B``, so
+    the only count a CUDA engine refuses is none; 33 and 48 slots, once
+    refused, are taken (one launch per group)."""
     from infernos_tpu_torch.serving import tts_engine as tts
 
-    for slots in (0, ts.MAX_B + 1, 48):
-        with pytest.raises(ValueError, match=f"1 to {ts.MAX_B} slots"):
-            tts.check_slots(slots, torch.device("cuda"))
-    for slots in (1, 8, ts.MAX_B):
+    with pytest.raises(ValueError, match="1 slot or more"):
+        tts.check_slots(0, torch.device("cuda"))
+    for slots in (1, 8, ts.MAX_B, ts.MAX_B + 1, 40, 48):
         tts.check_slots(slots, torch.device("cuda"))
+    assert [ts.launches_per_step(b) for b in (1, ts.MAX_B, ts.MAX_B + 1, 40, 48, 65)] == \
+        [1, 1, 2, 2, 2, 3]
     for slots in (ts.MAX_B + 1, 48):  # the plain CPU path takes any width
         tts.check_slots(slots, torch.device("cpu"))
     # the constructor checks before it packs a weight or makes any state
@@ -848,3 +854,77 @@ def test_parallel_entry_points_demand_a_card_unless_cpu_is_asked(monkeypatch, wh
         make()
     if what in ("make_mesh", "entry"):
         assert make(device="cpu") == torch.device("cpu")
+
+
+TRAINERS = ("train_tiny_stt", "train_tiny_tts", "train_tiny_llm", "train_vad",
+            "train_amendnet", "check_bilingual")
+
+
+def test_trainers_load_no_jax_reference_or_tools():
+    """The trainers, their optimiser and the gate, imported in a fresh
+    interpreter with a batch of each made, load no ``jax``, reference or
+    ``tools`` module."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        + "".join(f"import infernos_tpu_torch.tools.{m}\n" for m in TRAINERS) +
+        "from infernos_tpu_torch.tools import (train_amendnet, train_tiny_llm,"
+        " train_tiny_stt, train_tiny_tts, train_vad)\n"
+        "from infernos_tpu_torch.models import amendnet, vad\n"
+        "rng = np.random.default_rng(0)\n"
+        "tok = train_tiny_stt.build_tokenizer()\n"
+        "assert train_tiny_stt.make_batch(rng, tok, 1)[0].shape == (1, 80, 500)\n"
+        "ttok = train_tiny_tts.build_tokenizer()\n"
+        "ex = [train_tiny_tts.make_example(rng, ttok, train_tiny_tts.speaker_bank())]\n"
+        "assert train_tiny_tts.assemble(ex)[3].shape == (1, 320, 80)\n"
+        "from infernos_tpu_torch.models.tokenizers import ByteTokenizer\n"
+        "assert train_tiny_llm.make_batch(rng, ByteTokenizer(), 2)[0].shape == (2, 384)\n"
+        "assert train_vad.make_batch(rng, 1, 2, vad.VADConfig().window)[0].shape == (1, 2, 768)\n"
+        "assert train_amendnet.make_batch(rng, 1, amendnet.AmendNetConfig())[2].shape[0] == 1\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        f" ('jax', 'jaxlib', 'infernos_tpu', 'optax') + {TOOL_MODULES!r})\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=240).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", TRAINERS)
+def test_trainer_sources_reach_no_tools_or_optax(name):
+    src = (PKG / "tools" / f"{name}.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in TOOL_MODULES + ("optax",) for n in names), names
+    assert "sys.path" not in src
+
+
+@pytest.mark.parametrize("name", TRAINERS)
+def test_trainers_demand_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, name):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"infernos_tpu_torch.tools.{name}")
+    argv = [] if name == "check_bilingual" else ["--out", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert list(tmp_path.iterdir()) == []  # refused before anything was written
+
+
+@pytest.mark.parametrize("name", TRAINERS[:-1])
+def test_trainers_never_write_under_the_reference_package(tmp_path, name):
+    """By default they write under the port's git-ignored ``build/``; an
+    ``--out`` inside ``infernos_tpu/`` is refused before any work."""
+    import importlib
+
+    mod = importlib.import_module(f"infernos_tpu_torch.tools.{name}")
+    src = (PKG / "tools" / f"{name}.py").read_text()
+    assert "optim.default_out(" in src and "infernos_tpu\"" not in src
+    for bad in ("infernos_tpu", "infernos_tpu/models/data", "infernos_tpu/../infernos_tpu"):
+        with pytest.raises(ValueError, match="JAX package"):
+            mod.main(["--out", str(ROOT / bad), "--device", "cpu", "--steps", "1"])

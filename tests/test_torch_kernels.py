@@ -9,7 +9,10 @@ entry, heads read in place, must give the bits of the ``[BH, S, 64]`` one.
 The decoder step (one cooperative launch per call, both weight modes) is
 held at 1 to 32 slots, positions at 0, at T - 1 and past it, with and
 without a ragged mask, to itself (two calls and a CUDA-graph replay give
-the same bits) and to its refusals (33 slots, T 4097).  A tiny random STT
+the same bits) and to its refusal of T 4097; 33, 40 and 48 slots run as a
+launch per group of 32 slots.  ``KernelAttention`` (the kernel's forward,
+the reference's recomputed backward) is held to fp32 autograd of the plain
+attention.  A tiny random STT
 actor (head dim 12) started on the card fails with the attention kernel's
 refusal.
 Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
@@ -254,11 +257,11 @@ POS_KINDS = {
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
-@pytest.mark.parametrize("B", [1, 3, 8, 9, 32])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 32, 40])
 @pytest.mark.parametrize("pos_kind", sorted(POS_KINDS))
 @pytest.mark.parametrize("mask_kind", ["null", "ragged"])
 def test_decode_step_kernel_cases(card, mode, B, pos_kind, mask_kind):
-    """One launch against the plain step: hidden and cache rows within 3e-2,
+    """One launch (two at 40 slots) against the plain step: hidden and cache rows within 3e-2,
     rows other than pos untouched, the output in x's dtype (bf16 x with no
     mask, fp32 x with a ragged mask)."""
     T, S = 16, 8
@@ -276,8 +279,9 @@ def test_decode_step_kernel_cases(card, mode, B, pos_kind, mask_kind):
     hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
     torch.cuda.synchronize()
     after = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
-    assert after == ((before[0], before[1] + 1) if mode == "int8"
-                     else (before[0] + 1, before[1]))
+    n = ts.launches_per_step(B)
+    assert after == ((before[0], before[1] + n) if mode == "int8"
+                     else (before[0] + n, before[1]))
     assert hk.dtype == xdt and hk.shape == (B, 1, 128)
     # a bf16 output is one rounding of the same fp32 value
     tol = dict(atol=3e-2, rtol=2 ** -7 if xdt == torch.bfloat16 else 0)
@@ -367,12 +371,43 @@ def test_decode_step_kernel_keeps_scratch_per_stream(card, mode):
 
 @pytest.mark.parametrize("what", ["B33", "T4097"])
 def test_decode_step_kernel_refuses_too_many_slots_or_rows(card, what):
+    """T 4097 is refused; 33 slots, refused before slot groups, are taken in
+    two launches and match the plain step."""
     B, T = (33, 16) if what == "B33" else (2, 4097)
     cfg, fw, init, g = _step_setup(card, B, False, T)
     x = torch.zeros((B, 1, 128), device=card)
     pos = torch.zeros(B, dtype=torch.long, device=card)
-    with pytest.raises(ValueError, match="slots" if what == "B33" else "T 4097"):
+    if what == "B33":
+        ck, cp = _cache(init), _cache(init)
+        hk = ts.fused_decode_step(None, cfg, x, ck, pos, packed=fw)
+        hp = ts._plain_decode_step(fw, cfg, x, cp, pos)
+        torch.testing.assert_close(hk, hp, atol=3e-2, rtol=0)
+        return
+    with pytest.raises(ValueError, match="T 4097"):
         ts.fused_decode_step(None, cfg, x, _cache(init), pos, packed=fw)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_attention_gradients_match_fp32_autograd_of_plain(card, masked):
+    """``fused_attention`` under grad on the card: one launch, an autograd
+    node, and dq/dk/dv within 4e-3 relative L2 of fp32 autograd through the
+    plain attention on the same bf16 inputs (each gradient rounded to bf16)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((2, 130, 256), generator=g, device=card)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    gout = torch.randn((2, 130, 256), generator=g, device=card).to(torch.bfloat16)
+    mask = torch.arange(130, device=card)[None] < torch.tensor([[130], [77]], device=card) \
+        if masked else None
+    before = attn.fused_attention.launches
+    out = attn.fused_attention(q, k, v, n_heads=4, mask=mask)
+    assert attn.fused_attention.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = attn.by_heads(attn._plain_attention, *ref_in, n_heads=4, mask=mask)
+    want = torch.autograd.grad(ref, ref_in, gout.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert ((a.float() - b).norm() / b.norm()).item() <= 4e-3
 
 
 def test_tiny_random_stt_actor_on_the_card_fails_with_the_kernel_error(card, monkeypatch):
