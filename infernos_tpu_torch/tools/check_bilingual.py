@@ -22,16 +22,9 @@ from typing import Dict, List
 
 import numpy as np
 
+from .train_tiny_stt import word_acc
+
 GATE = 0.8
-
-
-def word_acc(refs, hyps) -> float:
-    ok = tot = 0
-    for r, h in zip(refs, hyps):
-        rw, hw = r.split(), h.split()
-        tot += len(rw)
-        ok += sum(a == b for a, b in zip(rw, hw))
-    return ok / max(tot, 1)
 
 
 def corpora(rng: np.random.Generator, n: int = 12) -> Dict[str, List[str]]:
@@ -92,7 +85,7 @@ def main(argv=None) -> int:
     for side, texts in texts_by_side.items():
         audios = [render_text(rng, t, Speaker.random(rng)) for t in texts]
         hyps = transcribe(eng, tok, audios, side)
-        acc = word_acc(texts, hyps)
+        acc = word_acc(hyps, texts)
         print(f"STT {side}-side word acc: {acc:.2%}")
         for r, h in list(zip(texts, hyps))[:3]:
             print(f"  ref {r!r} hyp {h!r}")
@@ -109,7 +102,7 @@ def main(argv=None) -> int:
         texts = texts_by_side["pt"][:6]
         hyps = [transcribe(eng, tok, [say(teng, ttok, t, table[0])], "pt")[0]
                 for t in texts]
-        acc = word_acc(texts, hyps)
+        acc = word_acc(hyps, texts)
         print(f"TTS->STT pt-side loopback word acc: {acc:.2%}")
         for r, h in list(zip(texts, hyps))[:3]:
             print(f"  ref {r!r} hyp {h!r}")

@@ -305,6 +305,7 @@ def greedy_decode(params, cfg, tok, mel, max_new: int = MAX_TGT - 1,
 
 
 def word_acc(hyps, refs) -> float:
+    """The share of the references' words that the hypotheses match in place."""
     ok = tot = 0
     for h, r in zip(hyps, refs):
         hw, rw = h.split(), r.split()
@@ -347,8 +348,7 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="continue from OUT/params.npz (warm-restart schedule)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.environ.get("INFERNOS_TRAIN_OUT_STT")
-                    or optim.default_out("tiny_stt"))
+    ap.add_argument("--out", default=optim.default_out("tiny_stt"))
     ap.add_argument("--device", default=None, help="cpu for the plain path")
     a = ap.parse_args(argv)
     out = optim.check_out(a.out)

@@ -356,8 +356,7 @@ def main(argv=None) -> int:
     ap.add_argument("--voc-lr", type=float, default=2e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--part", choices=["t5", "voc", "all"], default="all")
-    ap.add_argument("--out", default=os.environ.get("INFERNOS_TRAIN_OUT_TTS")
-                    or optim.default_out("tiny_tts"))
+    ap.add_argument("--out", default=optim.default_out("tiny_tts"))
     ap.add_argument("--device", default=None, help="cpu for the plain path")
     a = ap.parse_args(argv)
     out = optim.check_out(a.out)

@@ -7,11 +7,15 @@ that hands out fixed examples, and the port's steps from the same init
 reference's draws: the prenet masks and the scheduled-sampling choice come
 from the reference's key chain (``PRNGKey(seed + 99)`` split per step, then
 in three, then per prenet layer), injected through ``train_t5(draws=)``.
-The loss and every parameter leaf must match at fp32 within 1e-4 relative
-L2 (a leaf whose gradient is at round-off, where Adam steps by the learning
-rate either way, within twice the steps' learning rates an element:
-``torch_train_ref.assert_tree_close``); the batches, tokenizer and configs
-must equal the reference's.
+The first step's gradient of every leaf, the loss, and every parameter leaf
+after three steps must match at fp32 within 1e-4 relative L2, with two
+exceptions that each test derives from the reference, not from the distance
+(``torch_train_ref.assert_tree_close``): SpeechT5's attention key biases,
+whose reference gradient is at round-off, so that Adam steps them by the
+learning rate either way (held within twice the steps' learning rates an
+element); and the vocoder's zero-init biases, whose values are Adam's steps
+alone (held within a hundredth of them).  The batches, tokenizer and
+configs must equal the reference's.
 """
 
 import argparse
@@ -26,7 +30,14 @@ from infernos_tpu_torch.tools import optim
 from infernos_tpu_torch.tools import train_tiny_tts as P
 from tools import train_tiny_tts as J
 
-from torch_train_ref import assert_losses_close, assert_tree_close, port_params
+from torch_train_ref import (ROUNDOFF, assert_losses_close, assert_tree_close, flat_ref,
+                             port_grads, port_params, roundoff)
+
+
+# The attention key biases: each adds the same q.b to every key of a query,
+# so its exact gradient is zero and its computed gradient is round-off.
+K_BIASES = {"['enc_layers']['attn']['k']['b']", "['dec_layers']['self_attn']['k']['b']",
+            "['dec_layers']['cross_attn']['k']['b']"}
 
 
 @pytest.fixture(autouse=True)
@@ -146,15 +157,31 @@ def test_three_t5_steps_match_the_reference_trainer(data):
     jp["spk_table"] = 0.1 * jax.random.normal(jax.random.PRNGKey(seed + 5),
                                               (J.N_SPEAKERS, J.SPK_DIM))
     cfg = P.tiny_config(tok.vocab_size)
+    batches = P.assemble(server.sample(None, batch))
+    # the first step's gradient, every leaf: the reference's (its key chain's
+    # first split, share 0) against the port's on the same draws
+    first_key = jax.random.split(jax.random.PRNGKey(seed + 99))[1]
+    jb = J.assemble(examples[:batch])
+    jg = jax.jit(jax.grad(lambda p: _reference_loss(jcfg, p, jb, first_key, 0.0)))(jp)
+    p0 = port_params(jp)
+    loss0, _ = P.t5_loss(p0, cfg, *(torch.from_numpy(x) for x in batches),
+                         _jax_draws(cfg, seed, batch)[0](0, P.p_ss(0, steps)))
+    at_roundoff = roundoff(jg)
+    assert all(at_roundoff[k].all() for k in K_BIASES)
+    top = max(float(np.abs(g).max()) for g in flat_ref(jg).values())
+    assert_tree_close(port_grads(loss0, p0), jg, excused=at_roundoff, atol=ROUNDOFF * top)
     params = port_params(jp)
     opt = P.t5_optimizer(params, a.lr, steps)
     draws, shares = _jax_draws(cfg, seed, batch)
-    batches = P.assemble(server.sample(None, batch))
     losses = P.train_t5(params, cfg, opt, lambda s: batches, steps, "cpu", seed,
                         log_every=0, draws=draws)
     assert shares == [P.p_ss(s, steps) for s in range(steps)] and shares[-1] > 0
+    # an element whose gradient is at round-off steps by +-lr in each package,
+    # so two such walks end at most twice the steps' learning rates apart
     sched = P.optim.cosine_decay_schedule(a.lr, steps, alpha=0.05)
-    assert_tree_close(params, want, lr_sum=sum(sched(s) for s in range(steps)))
+    used = assert_tree_close(params, want, excused=at_roundoff,
+                             atol=2 * sum(sched(s) for s in range(steps)))
+    assert set(used) <= K_BIASES, used
     assert np.isfinite(losses).all() and len(losses) == steps
 
 
@@ -261,15 +288,43 @@ def test_three_vocoder_steps_match_the_reference_trainer(data):
     np.testing.assert_array_equal(init["mean"].numpy(), cat.mean(0))
     np.testing.assert_array_equal(init["scale"].numpy(), cat.std(0) + 1e-4)
     jp = {**jinit["p"], "mean": cat.mean(0), "scale": cat.std(0) + 1e-4}
+    rng = np.random.default_rng(seed + 23)
+    batches = [P.voc_batch(rng, server.sample(rng, a.voc_batch)) for _ in range(steps)]
+    # the first step's gradient, every leaf, held to 1e-4 with no exception
+    jg = jax.jit(jax.grad(_voc_reference_loss), static_argnums=1)(jp, J.voc_config(), *batches[0])
+    p0 = port_params(jp)
+    loss0, _ = P.voc_loss(p0, vcfg, *(torch.from_numpy(x) for x in batches[0]))
+    assert_tree_close(port_grads(loss0, p0), jg)
     params = port_params(jp)
     opt = P.voc_optimizer(params, a.voc_lr, steps)
-    rng = np.random.default_rng(seed + 23)
-    losses = P.train_vocoder(params, vcfg, opt,
-                             lambda s: P.voc_batch(rng, server.sample(rng, a.voc_batch)),
-                             steps, "cpu", log_every=0)
+    losses = P.train_vocoder(params, vcfg, opt, lambda s: batches[s], steps, "cpu",
+                             log_every=0)
     assert np.isfinite(losses).all()
+    # A leaf that starts at zero holds only Adam's steps, each a ratio of
+    # gradients, and from the second step on the gradients agree only to a
+    # few 1e-4 (the log-magnitude term divides by STFT bins near its 1e-5
+    # floor).  So its elements are held each within a hundredth of the
+    # steps' learning rates, summed: a step of the wrong sign, or none,
+    # misses that by more than the last step's learning rate.
     sched = P.optim.cosine_decay_schedule(a.voc_lr, steps, alpha=0.05)
-    assert_tree_close(params, want, lr_sum=sum(sched(s) for s in range(steps)))
+    zero = {k: np.ones(v.shape, bool) for k, v in flat_ref(jp).items() if not v.any()}
+    assert_tree_close(params, want, excused=zero,
+                      atol=0.01 * sum(sched(s) for s in range(steps)))
+
+
+def _voc_reference_loss(p, vcfg, mel, wav):
+    """``tools/train_tiny_tts.py:325-337``, the vocoder's ``loss_fn``."""
+    import jax.numpy as jnp
+
+    pred = J.hfg.apply(p, vcfg, jnp.asarray(mel))
+    wav = jnp.asarray(wav)
+    total = 0.0
+    for n_fft, hop in ((512, 128), (1024, 256), (2048, 512)):
+        mp, mt = J._stft_mag(pred, n_fft, hop), J._stft_mag(wav, n_fft, hop)
+        sc = jnp.linalg.norm(mt - mp) / jnp.maximum(jnp.linalg.norm(mt), 1e-6)
+        lm = jnp.abs(jnp.log(jnp.maximum(mt, 1e-5)) - jnp.log(jnp.maximum(mp, 1e-5))).mean()
+        total = total + sc + lm
+    return total + 10.0 * jnp.abs(pred - wav).mean() * 0.0
 
 
 def test_stft_frames_as_the_reference(data):
