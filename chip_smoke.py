@@ -9,15 +9,20 @@ Phases, each printing one JSON line:
 2. build    -- nvcc builds ``infernos_tpu_torch/csrc/*.cu`` (one process
                per source, in parallel);
 3. kernel 1 -- encoder attention kernel vs its plain PyTorch version, at
-               whisper-large-v3's shapes and at the tiny-real encoder's;
+               whisper-large-v3's shapes and at the tiny-real encoder's,
+               in bf16 and then (``kernel_attention_fp32``) in its fp32
+               mode, each fp32 shape timed beside
+               ``scaled_dot_product_attention`` on the same fp32 inputs;
 4. kernel 2 -- SpeechT5 decoder-step kernel (one cooperative launch per
-               step of up to 32 slots) vs its plain version, with bf16
-               weights (also at the tiny-real TTS engine's shapes, on its
-               weights) and then (``kernel_tts_step_int8``) with int8
-               weights and per-output-channel scales; each mode also at 40
-               and 48 slots (a launch per group of 32, ``wide``); then a
-               tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
-               sessions (``tts_wide_engine``);
+               step of up to 32 slots) vs its plain version in its four
+               modes: bf16 weights, int8 weights with per-output-channel
+               scales (``kernel_tts_step_int8``), and each over fp32
+               caches (``kernel_tts_step_fp32``,
+               ``kernel_tts_step_int8_fp32``); each mode at full width,
+               at the tiny-real TTS engine's shapes on its weights, and at
+               40 and 48 slots (a launch per group of 32, ``wide``); then
+               a tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
+               sessions (``tts_wide_engine``, fp32 caches);
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
                streams 4 sessions to >= 1 s of audio each;
@@ -30,7 +35,7 @@ Phases, each printing one JSON line:
                EngineDriver -> TTSSoundDispatch -> 8 kHz G.711 frames of
                160 bytes;
 8. rtp_call -- a two-leg call over real UDP on 127.0.0.1 with the trained
-               tiny-real pair from the port's loaders (bf16 on the card,
+               tiny-real pair from the port's loaders (fp32 on the card,
                Griffin-Lim vocoder): two far ends stream rendered speech as
                G.711 RTP at 20 ms pace into two RTPEndpoints on one
                RTPIngest (jitter buffer, NeuralVAD) -> STTSession -> T2T ->
@@ -41,7 +46,7 @@ Phases, each printing one JSON line:
 9. sip_call -- the same bilingual call through the daemon's own layers, in
                process: the YAML config read by ``InfernConfig``,
                ``build_cluster`` (RTP, LiveTranslator and SIP actors; STT and
-               two TTS model actors on tiny-real, bf16), a ``FakePhone``
+               two TTS model actors on tiny-real, fp32), a ``FakePhone``
                calling the SIP port and a ``FarEnd`` the app dials; both
                directions must reach 0.6 word accuracy; then both TTS
                engines say at once (one stream, one step scratch), and each
@@ -71,10 +76,10 @@ Phases, each printing one JSON line:
                request's tokens in the batch equal a run of it alone, the
                peak memory stays under the dense bf16 weights; prefill and
                decode times beside the decode step's bound;
-13. llm_tiny -- the trained tiny LLM in bf16: its replies to fixed
+13. llm_tiny -- the trained tiny LLM in fp32: its replies to fixed
                attendant contexts must be the training policy's;
 14. aia_call -- the AI attendant through SIP and the actors, in process,
-               on the tiny-real trio (bf16, Griffin-Lim): a ``FakePhone``
+               on the tiny-real trio (fp32, Griffin-Lim): a ``FakePhone``
                says "hello" (greeted) and "transfer me to billing please"
                (transferred); the LLM's replies must be the policy's and
                her packets must carry the audio the TTS emitted;
@@ -157,20 +162,26 @@ Phases, each printing one JSON line:
 31. train   -- the trainers (``infernos_tpu_torch/tools``): the attention
                kernel's autograd Function (the kernel's forward, the
                reference's recomputed backward) against fp32 autograd of the
-               plain attention at large-v3 and tiny widths, masked and not;
-               one tiny STT step through the kernel against the same step
-               through the plain attention (2 launches a step); then the
-               STT, SpeechT5, HiFi-GAN, LLM, VAD and AmendNet trainers 30
-               steps each on two pre-built batches (fp32 masters, bf16
-               forward), each loss finite and falling, each checkpoint saved
+               plain attention at large-v3 and tiny widths, masked and not,
+               in fp32 (and bf16 at large-v3 width); one tiny STT step
+               through the kernel against the same step through the plain
+               attention (2 fp32 launches a step); then the STT, SpeechT5,
+               HiFi-GAN, LLM, VAD and AmendNet trainers 30 steps each on
+               two pre-built batches (fp32 throughout, as the reference
+               trains), each loss finite and falling, each checkpoint saved
                under ``infernos_tpu_torch/build/trained`` and served once
                through the port's loaders;
 32. launches -- the kernels and copies the card runs for one
-               ``fused_attention`` call (1), one ``fused_decode_step`` call
-               in each weight mode (1) and one ``whisper.encode``, counted
-               with the profiler, last so that it slows nothing.
+               ``fused_attention`` call in each dtype (1), one
+               ``fused_decode_step`` call in each mode (1) and one
+               ``whisper.encode``, counted with the profiler, last so that
+               it slows nothing.
 
-Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+Then the ``{"kernels": [...]}`` line, a row per kernel mode with its
+launches by path, and, last, ``{"ok": true, ...}``.  The tiny and
+tiny-real engines and the trainers run the kernels' fp32 modes, the
+full-width engines the bf16 ones, as the reference does; every path is
+held to its modes (a launch of another mode fails it).
 Weights are random, from fixed seeds, except in ``rtp_call``,
 ``sip_call``, ``llm_tiny``, ``aia_call``, ``lt_bench_tiny``,
 ``loopback``, ``aia_bench`` and ``echo``, which serve the vendored trained
@@ -216,9 +227,11 @@ from unittest import mock
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 
 ATTN_TOL = 1e-2  # bf16 output: the plain version computes in fp32 from the same bf16 inputs
+ATTN_FP32_REL_TOL = 1e-5  # relative L2, fp32 mode: both full fp32, sums in another order
 STEP_TOL = 3e-2  # fp32 hidden after 6 layers of bf16 weights; cache rows rounded to bf16
 ENC_REL_TOL = 5e-2  # relative L2 error of the 32-layer encoder output, bf16 activations
 MEL_REL_TOL = 5e-2  # relative L2 error of one TTS tick's mel chunk (16 chained steps), bf16
@@ -242,6 +255,37 @@ def emit(phase: str, **kw) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def launch_counts() -> dict:
+    """Every kernel mode's launches so far (``infernos_tpu_torch.ops``)."""
+    from infernos_tpu_torch.ops import launch_counts as counts
+
+    return counts()
+
+
+def reset_launch_counts() -> None:
+    from infernos_tpu_torch.ops import reset_launch_counts as reset
+
+    reset()
+
+
+# a path's kernel modes: kernel 1 in bf16 or fp32, and kernel 2 by (int8
+# weights, fp32 caches); the names of ``ops.launch_counts``
+ATTN_KEY = {False: "attention", True: "attention_fp32"}
+STEP_KEY = {(False, False): "bf16_step", (True, False): "int8_step",
+            (False, True): "fp32_step", (True, True): "int8_fp32_step"}
+
+
+def path_launches(c: dict, what: str, fp32: bool, int8: bool = False) -> tuple:
+    """(kernel-1, kernel-2) launches of a path in its modes, from launch
+    counts ``c``: the tiny and tiny-real engines run the fp32 modes, the
+    full-width ones the bf16 modes; any launch in another mode fails."""
+    mine = (ATTN_KEY[fp32], STEP_KEY[(int8, fp32)])
+    for k in (*ATTN_KEY.values(), *STEP_KEY.values()):
+        check(k in mine or c[k] == 0, f"{what}: {k} kernel launched {c[k]} times, "
+                                      f"outside this path's modes {mine}")
+    return c[mine[0]], c[mine[1]]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -325,9 +369,9 @@ def sass_summary(build, name: str):
             "first_HGMMA": hgmma[0] if hgmma else None}
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -424,6 +468,82 @@ def phase_attention(torch, attn):
                                     "bound_by", "library_ms", "library_eager_ms")}}
 
 
+def phase_attention_fp32(torch, attn):
+    """Kernel 1's fp32 mode against its plain version in fp32, relative L2
+    within ``ATTN_FP32_REL_TOL``: whisper-large-v3's ``[20, 1500, 64]`` and
+    the tiny-real encoder's ``[B * 4, S, 64]`` (S 100 and 250, off the
+    64-key tile grid), masked and not, then the tiny-real ``[B, S, 256]``
+    call with heads read in place.  Every ``[BH, S, 64]`` case is timed:
+    ``ms`` (graph replay), ``eager_ms``, the plain version's and
+    ``scaled_dot_product_attention``'s on the same fp32 inputs, and the
+    bound at the card's fp32 rate."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    Dh = 64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def rel_err(what, got, want):
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32, f"fp32 attention {what}: output {got.dtype}")
+        err = ((got.double() - want.double()).norm() / want.double().norm()).item()
+        check(math.isfinite(err) and err <= ATTN_FP32_REL_TOL,
+              f"fp32 attention kernel {what}: relative L2 error {err}")
+        return err, (got - want).abs().max().item()
+
+    cases = []
+    for BH, S in ((20, 1500), (4, 100), (4, 250), (8, 250)):
+        for masked in (False, True):
+            q, k, v = rnd(BH, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
+            zeros = torch.zeros((BH, S), device="cuda")
+            mask = None
+            if masked:
+                lens = torch.randint(S // 2, S + 1, (BH,), generator=g, device="cuda")
+                mask = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
+                                   0.0, attn.NEG_INF)
+            before = attn.fused_attention.launches
+            kern = lambda: attn._kernel_attention(q, k, v, mask)
+            rel, mae = rel_err(f"[{BH}, {S}, 64] masked={masked}", kern(),
+                               attn._plain_attention(q, k, v, zeros if mask is None else mask))
+            check(attn.fused_attention.launches == before,
+                  "fp32 attention: the bf16 kernel's count moved")
+            q4, k4, v4 = (t[None] for t in (q, k, v))  # [1, BH, S, Dh]
+            m4 = None if mask is None else mask[None, :, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+            bms, by = bound_ms(4 * BH * S * Dh * 4 + (BH * S * 4 if masked else 0),
+                               4.0 * BH * S * S * Dh, PEAK_FP32_FLOPS)
+            cases.append({
+                "BH": BH, "S": S, "masked": masked, "rel_l2_err": rel, "max_abs_err": mae,
+                "ms": graph_ms(kern, 20), "eager_ms": cuda_ms(kern, 20),
+                "plain_ms": cuda_ms(lambda: attn._plain_attention(
+                    q, k, v, zeros if mask is None else mask), 5),
+                "library_ms": graph_ms(sdpa, 20), "library_eager_ms": cuda_ms(sdpa, 20),
+                "bound_ms": bms, "bound_by": by})
+    # the tiny-real encoder's own call: [B, S, 4 * 64] read in place, a key
+    # mask per utterance
+    q, k, v = rnd(2, 250, 4 * Dh), rnd(2, 250, 4 * Dh), rnd(2, 250, 4 * Dh)
+    mask = torch.arange(250, device="cuda")[None] < torch.tensor([[250], [130]], device="cuda")
+    rel, mae = rel_err("[2, 250, 256] in place",
+                       attn.fused_attention(q, k, v, n_heads=4, mask=mask),
+                       attn.by_heads(attn._plain_attention, q, k, v, n_heads=4, mask=mask))
+    cases.append({"B": 2, "S": 250, "heads": 4, "masked": True, "layout": "[B, S, D]",
+                  "rel_l2_err": rel, "max_abs_err": mae})
+    main = cases[0]  # [20, 1500, 64], no mask
+    emit("kernel_attention_fp32", rel_tol=ATTN_FP32_REL_TOL, cases=cases,
+         bound_us=main["bound_ms"] * 1e3)
+    return {"name": "encoder_attention_fp32", "route": "cuda",
+            "source": "infernos_tpu_torch/csrc/attention.cu",
+            "replaces": "infernos_tpu/ops/attention.py:53 (fp32 inputs)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rel_l2_err": max(c["rel_l2_err"] for c in cases),
+            "tiny_real_ms": {f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c["ms"]
+                             for c in cases if c.get("BH") in (4, 8)},
+            **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_eager_ms")}}
+
+
 # -- phase 4: TTS decoder-step kernel -----------------------------------------
 
 def step_bytes(fw, cache, pos, B, with_mask=True) -> float:
@@ -434,8 +554,9 @@ def step_bytes(fw, cache, pos, B, with_mask=True) -> float:
     D = H * Dh
     w = sum(t.numel() * t.element_size() for t in fw.values())
     rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
-    self_kv = 2 * Lyr * H * Dh * 2 * rows
-    cross_kv = 2 * Lyr * B * H * S * Dh * 2
+    esz = cache.self_k.element_size()  # bf16 or fp32 caches
+    self_kv = 2 * Lyr * H * Dh * esz * rows
+    cross_kv = 2 * Lyr * B * H * S * Dh * esz
     return w + self_kv + cross_kv + (B * S * 4 if with_mask else 0) + 2 * B * D * 4
 
 
@@ -447,22 +568,24 @@ def step_ops(fw, cache, pos, B) -> float:
     return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
 
 
-def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4):
+def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4,
+                  cdt=None):
     """``steps`` chained steps of the kernel and of its plain version from the
-    same random bf16 caches (pos advancing, caches carried over), x fp32 on
-    even steps and bf16 on odd ones; checks the hidden states, the cache rows
-    written and that no other row changed.  Returns (hidden error with fp32
-    x, with bf16 x, cache row error, untouched, kernel cache, plain cache,
-    key mask)."""
+    same random caches in ``cdt`` (bf16 by default; pos advancing, caches
+    carried over), x fp32 on even steps and bf16 on odd ones; checks the
+    hidden states, the cache rows written and that no other row changed.
+    Returns (hidden error with fp32 x, with bf16 x, cache row error,
+    untouched, kernel cache, plain cache, key mask)."""
     from infernos_tpu_torch.models import speecht5 as st5
 
     Lyr, H, Dh = cfg.decoder_layers, cfg.decoder_attention_heads, cfg.head_dim
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    init = [rnd(Lyr, B, H, T, Dh), rnd(Lyr, B, H, T, Dh),
-            rnd(Lyr, B, H, S, Dh), rnd(Lyr, B, H, S, Dh)]
+    cdt = cdt or torch.bfloat16
+    init = [rnd(Lyr, B, H, T, Dh, dtype=cdt), rnd(Lyr, B, H, T, Dh, dtype=cdt),
+            rnd(Lyr, B, H, S, Dh, dtype=cdt), rnd(Lyr, B, H, S, Dh, dtype=cdt)]
     ck = st5.DecoderCache(*(t.clone() for t in init))  # kernel's cache
     cp = st5.DecoderCache(*(t.clone() for t in init))  # plain version's cache
     enc_mask = torch.arange(S, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
@@ -505,18 +628,22 @@ def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4):
     return h_err, h16_err, row_err, untouched, ck, cp, enc_mask
 
 
-def tiny_real_steps(torch, ts) -> dict:
-    """The bf16 step kernel against its plain version at the tiny-real TTS
+def tiny_real_steps(torch, ts, int8: bool, cdt) -> dict:
+    """The step kernel against its plain version at the tiny-real TTS
     engine's shapes (D 256, 4 heads, F 768, 3 layers; 8 slots, T 170 and
-    S 48, as phase ``rtp_call`` builds it) on the trained weights."""
+    S 48, as phase ``rtp_call`` builds it) on the trained weights (fp32,
+    packed in bf16 on the card, or quantized), over caches in ``cdt``."""
     from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.models.quant import quantize_params
 
-    params, cfg = tiny_real.load_tiny_tts("gl")[:2]  # bf16 on the card
-    fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
+    params, cfg = tiny_real.load_tiny_tts("gl")[:2]  # fp32, the tiny rule
+    fw = ts.pack_fused_weights(quantize_params(params) if int8 else params, cfg)
+    check(ts.is_int8(fw) == int8, "tiny-real step: packed weights in the wrong mode")
     g = torch.Generator(device="cuda").manual_seed(9)
     h_err, h16_err, row_err = compare_steps(
         torch, ts, cfg, fw, g, 8, RTP_TTS_STEPS, RTP_TTS_TOKENS, "tiny-real step",
-        lens=[48, 1, 20, 48, 7, 33, 48, 12], pos0=[0, 169, 1, 80, 100, 37, 150, 7])[:3]
+        lens=[48, 1, 20, 48, 7, 33, 48, 12], pos0=[0, 169, 1, 80, 100, 37, 150, 7],
+        cdt=cdt)[:3]
     return {"tiny_real_hidden_max_abs_err": h_err,
             "tiny_real_bf16_hidden_max_abs_err": h16_err,
             "tiny_real_cache_rows_max_abs_err": row_err}
@@ -525,7 +652,7 @@ def tiny_real_steps(torch, ts) -> dict:
 WIDE_SLOTS = (40, 48)  # beyond one launch's MAX_B: a launch per group of 32
 
 
-def wide_steps(torch, ts, cfg, fw, g, name: str, int8: bool) -> dict:
+def wide_steps(torch, ts, cfg, fw, g, name: str, key: str, cdt) -> dict:
     """The step kernel against its plain version at 40 and 48 slots (two
     launches a step, groups of 32 and the rest, each on its slot slice of
     the same caches), two chained steps at full width; and each width's
@@ -535,14 +662,14 @@ def wide_steps(torch, ts, cfg, fw, g, name: str, int8: bool) -> dict:
         T, S = 512, 96
         lens = [96, 1] + [(7 * i) % S + 1 for i in range(B - 2)]
         pos0 = [0, T - 1] + [(37 * i) % (T - 2) for i in range(B - 2)]
-        before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
+        before = launch_counts()
         h_err, h16_err, row_err, untouched, ck, _, enc_mask = compare_steps(
-            torch, ts, cfg, fw, g, B, T, S, f"{name} B={B}", lens=lens, pos0=pos0, steps=2)
-        moved = (ts.fused_decode_step.launches - before[0],
-                 ts.fused_decode_step.launches_int8 - before[1])
+            torch, ts, cfg, fw, g, B, T, S, f"{name} B={B}", lens=lens, pos0=pos0, steps=2,
+            cdt=cdt)
+        moved = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
         n = 2 * ts.launches_per_step(B)
-        check(moved == ((0, n) if int8 else (n, 0)),
-              f"{name} B={B}: launch counts moved by {moved}, want {n} in 2 steps")
+        check(moved == {key: n},
+              f"{name} B={B}: launch counts moved by {moved}, want {key} {n} in 2 steps")
         pos = torch.full((B,), 256, device="cuda")
         x = torch.randn((B, 1, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
         out[B] = {"hidden_max_abs_err": h_err, "bf16_hidden_max_abs_err": h16_err,
@@ -555,16 +682,17 @@ def wide_steps(torch, ts, cfg, fw, g, name: str, int8: bool) -> dict:
 
 def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
     """A ``TTSEngine`` of ``slots`` slots on the card (tiny-real weights,
-    bf16, Griffin-Lim) runs ``ticks`` ticks with ``slots`` sessions: every
-    step of all slots is one launch per group of 32, counted from 0 here,
-    and every session has finite audio by the end.  Returns the launches."""
+    fp32, Griffin-Lim) runs ``ticks`` ticks with ``slots`` sessions: every
+    step of all slots is one launch of the fp32-cache mode per group of 32,
+    counted from 0 here, and every session has finite audio by the end.
+    Returns the launches."""
     from infernos_tpu_torch.models import tiny_real
     from infernos_tpu_torch.serving import tts_engine as tts
 
     tp, tcfg, vp, vcfg, tok, table = tiny_real.load_tiny_tts("gl", "cuda")
     eng = tts.TTSEngine(tp, tcfg, vp, vcfg, tts.TTSEngineConfig(
         batch_slots=slots, max_text_tokens=RTP_TTS_TOKENS, max_steps=RTP_TTS_STEPS,
-        stop_threshold=0.5, dtype=torch.bfloat16), device="cuda")
+        stop_threshold=0.5, dtype=torch.float32), device="cuda")
     chunks = {i: [] for i in range(slots)}
     for i in range(slots):
         eng.start_session(np.asarray(tok(CALL_LINES[i % 2][4]), np.int32), table[i % len(table)],
@@ -573,14 +701,14 @@ def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
     step = mock.patch.object(tts, "fused_decode_step",
                              side_effect=lambda *a, **k: calls.append(1) or
                              ts.fused_decode_step(*a, **k))
-    ts.fused_decode_step.launches = 0  # this path starts here
+    reset_launch_counts()  # this path starts here
     t0 = time.perf_counter()
     with step:
         for _ in range(ticks):
             eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ts.fused_decode_step.launches
+    launches = path_launches(launch_counts(), f"tts {slots} slots", fp32=True)[1]
     check(calls and launches == ts.launches_per_step(slots) * len(calls),
           f"tts {slots} slots: {launches} launches for {len(calls)} steps")
     for i, cs in chunks.items():
@@ -589,17 +717,26 @@ def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
               f"tts {slots} slots: session {i} has no finite audio after {ticks} ticks")
     emit("tts_wide_engine", slots=slots, sessions=slots, ticks=ticks, steps=len(calls),
          launches=launches, launches_per_step=ts.launches_per_step(slots), wall_s=wall,
-         model="tiny-real SpeechT5 (bf16, Griffin-Lim)")
+         model="tiny-real SpeechT5 (fp32, Griffin-Lim)")
     return launches
 
 
-def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
+STEP_MODE_NAMES = {(False, False): "tts_decode_step", (True, False): "tts_decode_step_int8",
+                   (False, True): "tts_decode_step_fp32",
+                   (True, True): "tts_decode_step_int8_fp32"}
+
+
+def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
     """The decoder-step kernel against its plain version at full width; with
     ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
-    the bf16 kernel's time (``bf16_ms``) is printed beside the int8 one.
-    Returns the kernels row and the timed call (for the launch count)."""
+    the bf16 kernel's time (``bf16_ms``) is printed beside the others; with
+    ``fp32`` the caches are fp32 (the tiny and tiny-real engines' mode).
+    Also at the tiny-real engine's shapes on its trained weights, in the
+    same mode.  Returns the kernels row and the timed call (for the launch
+    count)."""
     from infernos_tpu_torch.models.quant import quantize_params
 
+    cdt = torch.float32 if fp32 else torch.bfloat16
     cfg = st5.SpeechT5Config()
     g = torch.Generator(device="cuda").manual_seed(4)
     params = st5.init_params(cfg, g, "cuda", torch.bfloat16)
@@ -611,37 +748,34 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
         ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device="cuda")
     fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
     check(ts.is_int8(fw) == int8, "tts step: packed weights in the wrong mode")
-    name = "tts_decode_step_int8" if int8 else "tts_decode_step"
+    name, key = STEP_MODE_NAMES[(int8, fp32)], STEP_KEY[(int8, fp32)]
     B, T, S = 8, 512, 96
-    before = (ts.fused_decode_step.launches, ts.fused_decode_step.launches_int8)
+    before = launch_counts()
     errs = compare_steps(torch, ts, cfg, fw, g, B, T, S, name,
                          lens=[96, 1, 50, 96, 17, 80, 96, 33],
-                         pos0=[0, 511, 1, 255, 100, 37, 400, 7])
-    moved = (ts.fused_decode_step.launches - before[0],
-             ts.fused_decode_step.launches_int8 - before[1])
-    check(moved == ((0, 4) if int8 else (4, 0)),
-          f"{name}: launch counts moved by {moved} (bf16, int8)")
+                         pos0=[0, 511, 1, 255, 100, 37, 400, 7], cdt=cdt)
+    moved = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    check(moved == {key: 4}, f"{name}: launch counts moved by {moved}, want {key} 4")
     h_err, h16_err, row_err, untouched, ck, cp, enc_mask = errs
-    tiny = {} if int8 else tiny_real_steps(torch, ts)
-    wide = wide_steps(torch, ts, cfg, fw, g, name, int8)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    tiny = tiny_real_steps(torch, ts, int8, cdt)
+    wide = wide_steps(torch, ts, cfg, fw, g, name, key, cdt)
 
     pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
-    x = rnd(B, 1, cfg.hidden_size)
+    x = torch.randn((B, 1, cfg.hidden_size), generator=g, device="cuda").to(
+        torch.float32 if fp32 else torch.bfloat16)  # as the engines of the mode give it
     step = lambda: ts.fused_decode_step(None, cfg, x, ck, pos, enc_mask, packed=fw)
     # device time (50 steps replayed from one CUDA graph); eager_ms is the
     # same call made from Python back to back, host-bound if the host is slower
     ms = graph_ms(step, 50)
     eager_ms = cuda_ms(step, 50)
     plain_ms = cuda_ms(lambda: ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask), 10)
-    # operations at the bf16 tensor-core rate in both modes (the int8 codes
-    # meet fp32 activations); either way the bytes set the bound
+    # operations at the bf16 tensor-core rate in every mode (the products
+    # take bf16 x and bf16 or int8 weights); the bytes set the bound
     n_bytes = step_bytes(fw, ck, pos, B)
     bms, by = bound_ms(n_bytes, step_ops(fw, ck, pos, B))
-    extra = {"bf16_ms_per_step": bf16_ms} if int8 else {}
-    emit("kernel_tts_step_int8" if int8 else "kernel_tts_step", tol=STEP_TOL,
+    extra = {"bf16_ms_per_step": bf16_ms} if bf16_ms is not None else {}
+    emit("kernel_" + name.replace("tts_decode_", "tts_"), tol=STEP_TOL,
+         cache_dtype=str(cdt).replace("torch.", ""),
          hidden_max_abs_err=h_err, bf16_hidden_max_abs_err=h16_err,
          bf16_tol=f"{STEP_TOL} + 2^-7 relative",
          cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
@@ -651,13 +785,12 @@ def phase_tts_step(torch, st5, ts, int8=False, bf16_ms=None):
          weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
          bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **tiny, **extra,
          wide=wide)
+    mode = (" (int8w mode, :128)" if int8 else "") + (" (fp32 caches, :677)" if fp32 else "")
     return {"name": name, "route": "cuda",
             "source": "infernos_tpu_torch/csrc/tts_step.cu",
-            "replaces": "infernos_tpu/ops/tts_step.py:727"
-                        + (" (int8w mode, :128)" if int8 else ""),
-            "max_abs_err": max(h_err, row_err,
-                               tiny.get("tiny_real_hidden_max_abs_err", 0.0),
-                               tiny.get("tiny_real_cache_rows_max_abs_err", 0.0),
+            "replaces": "infernos_tpu/ops/tts_step.py:727" + mode,
+            "max_abs_err": max(h_err, row_err, tiny["tiny_real_hidden_max_abs_err"],
+                               tiny["tiny_real_cache_rows_max_abs_err"],
                                *(w[k] for w in wide.values()
                                  for k in ("hidden_max_abs_err", "cache_rows_max_abs_err"))),
             "bf16_hidden_max_abs_err": h16_err,
@@ -730,7 +863,7 @@ def phase_stt(torch, attn, profile_dir=None):
     eng.encode_ms.clear()
 
     results = {}
-    attn.fused_attention.launches = 0  # the main path starts here
+    reset_launch_counts()  # the main path starts here
     with profile_window(profile_dir) as prof:
         t0 = time.perf_counter()
         for i, a in enumerate(audios):
@@ -742,7 +875,7 @@ def phase_stt(torch, attn, profile_dir=None):
             steps += 1
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    launches = attn.fused_attention.launches  # read right after the main path
+    launches = path_launches(launch_counts(), "stt", fp32=False)[0]  # right after the path
     check(len(results) == len(audios), f"stt: {len(results)} of {len(audios)} results")
     check(any(r.tokens for r in results.values()), "stt: no request got a token")
     for i, r in results.items():
@@ -847,8 +980,7 @@ def phase_tts(torch, ts, profile_dir=None):
         return sum(len(c) for c in chunks[i] if c is not None)
 
     first = {}
-    ts.fused_decode_step.launches = 0  # the main path starts here
-    ts.fused_decode_step.launches_int8 = 0
+    reset_launch_counts()  # the main path starts here
     with profile_window(profile_dir) as prof:
         t0 = time.monotonic()
         sids = [eng.start_session(tok(t), bank.get(i), chunks[i].append)
@@ -866,7 +998,7 @@ def phase_tts(torch, ts, profile_dir=None):
             ticks += 1
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
-    launches = ts.fused_decode_step.launches  # read right after the main path
+    launches = path_launches(launch_counts(), "tts", fp32=False)[1]  # right after the path
     check(launches > 0, "tts: the decoder-step kernel never launched")
     rms = []
     for i, cs in chunks.items():
@@ -1114,9 +1246,7 @@ def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
     worker.start()
     stt_drv.start()
     tts_drv.start()
-    attn.fused_attention.launches = 0
-    ts.fused_decode_step.launches = 0
-    ts.fused_decode_step.launches_int8 = 0
+    reset_launch_counts()
     try:
         t0 = time.monotonic()
         for k in range(n_in):  # 20 ms payloads at the pace of a call
@@ -1141,11 +1271,12 @@ def drive_turn(torch, attn, ts, stt_eng, tts_eng, vparams_vad, vcfg_vad,
         stt_drv.stop()
         tts_drv.stop()
         tts_eng.close()
-    attn_launches = attn.fused_attention.launches
-    bf16_steps = ts.fused_decode_step.launches
-    int8_steps = ts.fused_decode_step.launches_int8
+    c = launch_counts()
     if errors:
         raise errors[0]
+    # full width: kernel 1 in bf16, kernel 2 with int8 weights over bf16 caches
+    attn_launches, int8_steps = path_launches(c, "turn", fp32=False, int8=True)
+    bf16_steps = c["bf16_step"]
     for t in (worker, stt_drv, tts_drv, *([tts_eng._hthread] if ecfg.async_harvest else [])):
         check(not t.is_alive(), f"turn: thread {t.name} did not stop")
 
@@ -1262,8 +1393,9 @@ def tiny_real_engines(device=None):
     """The tiny-real pair through the port's loaders, set up as the
     reference's actors start it: an ``STTEngine`` of 8 slots on 2 s and 5 s
     buckets, and a dense ``TTSEngine`` of 8 slots, 48 text tokens, 170 steps,
-    stop threshold 0.5, on Griffin-Lim; bf16 on the card, fp32 on the CPU.
-    Returns (stt engine, tts engine, tts tokenizer, speaker bank)."""
+    stop threshold 0.5, on Griffin-Lim; fp32 on every device, as the
+    reference serves them.  Returns (stt engine, tts engine, tts tokenizer,
+    speaker bank)."""
     from infernos_tpu_torch.models import tiny_real
     from infernos_tpu_torch.serving import stt_engine as stt
     from infernos_tpu_torch.serving import tts_engine as tts
@@ -1274,7 +1406,7 @@ def tiny_real_engines(device=None):
     tp, tcfg, vp, vcfg, ttok, table = tiny_real.load_tiny_tts("gl", device)
     ecfg = tts.TTSEngineConfig(batch_slots=8, max_text_tokens=RTP_TTS_TOKENS,
                                max_steps=RTP_TTS_STEPS, stop_threshold=0.5,
-                               dtype=tiny_real.serving_dtype(stt_eng.device))
+                               dtype=tiny_real.serving_dtype(stt_eng.device, tiny=True))
     tts_eng = tts.TTSEngine(tp, tcfg, vp, vcfg, ecfg, device=device)
     return stt_eng, tts_eng, ttok, SpeakerBank(table)
 
@@ -1623,10 +1755,10 @@ def pacer_jitter_share(n_legs: int = 500) -> dict:
 
 
 def phase_rtp_call(torch, attn, ts):
-    """The tiny-real pair on the card through the port's loaders (bf16) and
+    """The tiny-real pair on the card through the port's loaders (fp32) and
     Griffin-Lim, in a two-leg call over RTP (``drive_rtp_call``); checks both
     directions' speech and the kernels and media it went through.  Returns
-    the launch counts of its run (attention, bf16 step kernel)."""
+    the launch counts of its run (the fp32 modes of kernel 1 and 2)."""
     from infernos_tpu_torch.audio import griffinlim as gl
     from infernos_tpu_torch.media import cpacer, native
     from infernos_tpu_torch.utils.platform import card_info
@@ -1635,10 +1767,10 @@ def phase_rtp_call(torch, attn, ts):
     stt_eng, tts_eng, tts_tok, bank = tiny_real_engines()
     check(stt_eng.device.type == "cuda" and tts_eng.device.type == "cuda",
           "rtp call: the tiny-real engines are not on the card")
-    check(stt_eng.ecfg.dtype == torch.bfloat16 and tts_eng.ecfg.dtype == torch.bfloat16,
-          "rtp call: the tiny-real engines do not serve bf16 on the card")
+    check(stt_eng.ecfg.dtype == torch.float32 and tts_eng.ecfg.dtype == torch.float32,
+          "rtp call: the tiny-real engines do not serve fp32 on the card")
     check(isinstance(tts_eng.voc_cfg, gl.GriffinLimConfig) and not ts.is_int8(tts_eng.packed),
-          "rtp call: the TTS engine is not dense bf16 on Griffin-Lim")
+          "rtp call: the TTS engine is not dense on Griffin-Lim")
     stt_eng.warmup()
     tts_eng.warmup()
     warm_s = time.perf_counter() - t0
@@ -1647,14 +1779,10 @@ def phase_rtp_call(torch, attn, ts):
     tts_eng.tick_frames.clear()
     tts_eng._last_dispatch_t = None
 
-    attn.fused_attention.launches = 0  # the main path starts here
-    ts.fused_decode_step.launches = 0
-    ts.fused_decode_step.launches_int8 = 0
+    reset_launch_counts()  # the main path starts here
     call = drive_rtp_call(stt_eng, tts_eng, tts_tok, bank)
     torch.cuda.synchronize()
-    attn_launches = attn.fused_attention.launches  # read right after it
-    bf16_steps = ts.fused_decode_step.launches
-    int8_steps = ts.fused_decode_step.launches_int8
+    attn_launches, fp32_steps = path_launches(launch_counts(), "rtp call", fp32=True)
 
     encodes = len(stt_eng.encode_ms)
     enc_layers = stt_eng.cfg.encoder_layers
@@ -1662,9 +1790,9 @@ def phase_rtp_call(torch, attn, ts):
     check(encodes > 0 and attn_launches == enc_layers * encodes,
           f"rtp call: attention kernel launched {attn_launches} times for "
           f"{encodes} encodes, want {enc_layers} each")
-    check(bf16_steps == steps_run and bf16_steps > 0,
-          f"rtp call: bf16 step kernel launched {bf16_steps} times for {steps_run} steps")
-    check(int8_steps == 0, f"rtp call: the int8 step kernel launched {int8_steps} times")
+    check(fp32_steps == steps_run and fp32_steps > 0,
+          f"rtp call: fp32-cache step kernel launched {fp32_steps} times for "
+          f"{steps_run} steps")
     check(call["native_engine"] and native.load_error() is None,
           f"rtp call: native media engine not loaded ({native.load_error()})")
     for n, w in call["writers"].items():
@@ -1704,10 +1832,10 @@ def phase_rtp_call(torch, attn, ts):
         vad_model(win, slots=slots)
     vad_ms = (time.perf_counter() - t0) / 20 * 1e3
     jitter = pacer_jitter_share()
-    emit("rtp_call", card=card_info(), model="tiny-real (bf16, Griffin-Lim)",
+    emit("rtp_call", card=card_info(), model="tiny-real (fp32, Griffin-Lim)",
          warmup_s=warm_s, call_s=call["call_s"], directions=out,
-         word_acc_min=ACC_MIN, attention_launches=attn_launches,
-         bf16_step_launches=bf16_steps, tts_steps_run=steps_run, stt_encodes=encodes,
+         word_acc_min=ACC_MIN, attention_fp32_launches=attn_launches,
+         fp32_step_launches=fp32_steps, tts_steps_run=steps_run, stt_encodes=encodes,
          encode_ms=stt_eng.encode_ms, tts_ms_per_tick=tts_eng.tick_ms,
          tts_tick_frames=tts_eng.tick_frames, griffinlim_ms_by_frames=gl_ms,
          griffinlim_slots=B, vad_ms_per_forward=vad_ms, vad_batch=2,
@@ -1719,7 +1847,7 @@ def phase_rtp_call(torch, attn, ts):
               f"rtp call {o['direction']}: heard {o['heard']!r}, expected "
               f"{o['expected']!r} (word accuracy {o['word_acc']:.2f} < {ACC_MIN}); "
               f"STT gave {o['stt_text']!r}, translated {o['translated']!r}")
-    return attn_launches, bf16_steps
+    return attn_launches, fp32_steps
 
 
 # -- phase 9: the bilingual LiveTranslator call through SIP, in process -------
@@ -2008,36 +2136,31 @@ def say_together(timeout_s: float) -> list:
 
 
 def phase_sip_call(torch, attn, ts):
-    """Phase ``sip_call``: :func:`drive_sip_call` on the card (bf16,
+    """Phase ``sip_call``: :func:`drive_sip_call` on the card (fp32,
     Griffin-Lim), with both TTS engines saying at once at its end.  Checks
     both directions' speech, the teardown and the kernels the call went
-    through; returns the launch counts of its run (attention, bf16 step)."""
+    through; returns the launch counts of its run (the fp32 modes of
+    kernels 1 and 2)."""
     from infernos_tpu_torch.audio import griffinlim as gl
     from infernos_tpu_torch.utils.platform import card_info
 
-    def zero_counts():  # the main path starts here, the cluster warm
-        attn.fused_attention.launches = 0
-        ts.fused_decode_step.launches = 0
-        ts.fused_decode_step.launches_int8 = 0
-
-    call = drive_sip_call(together=True, on_ready=zero_counts)
+    # the main path starts at on_ready, the cluster warm
+    call = drive_sip_call(together=True, on_ready=reset_launch_counts)
     torch.cuda.synchronize()
-    attn_launches = attn.fused_attention.launches  # read right after it
-    bf16_steps = ts.fused_decode_step.launches
-    int8_steps = ts.fused_decode_step.launches_int8
+    attn_launches, steps_k = path_launches(launch_counts(), "sip call", fp32=True)
 
     stt, tts = call["stt"], call["tts"]
-    check(stt.device.type == "cuda" and stt.ecfg.dtype == torch.bfloat16,
-          "sip call: the STT actor does not serve bf16 on the card")
+    check(stt.device.type == "cuda" and stt.ecfg.dtype == torch.float32,
+          "sip call: the STT actor does not serve fp32 on the card")
     for lang, eng in tts.items():
-        check(eng.device.type == "cuda" and eng.ecfg.dtype == torch.bfloat16
+        check(eng.device.type == "cuda" and eng.ecfg.dtype == torch.float32
               and isinstance(eng.voc_cfg, gl.GriffinLimConfig) and not ts.is_int8(eng.packed),
-              f"sip call: the {lang} TTS actor is not dense bf16 on Griffin-Lim")
+              f"sip call: the {lang} TTS actor is not dense fp32 on Griffin-Lim")
     encodes = call["stt_encodes"]
     check(encodes > 0 and attn_launches == stt.cfg.encoder_layers * encodes,
           f"sip call: attention kernel launched {attn_launches} times for "
           f"{encodes} encodes, want {stt.cfg.encoder_layers} each")
-    steps = call_checks(call, tts, bf16_steps, int8_steps, "sip call")
+    steps = call_checks(call, tts, steps_k, "sip call")
     out = heard_directions(stt, call)
     together = []
     for say in call["together"]:
@@ -2049,10 +2172,10 @@ def phase_sip_call(torch, attn, ts):
                          "max_abs_diff_alone": float(np.abs(a - b).max())
                          if len(a) == len(b) and len(a) else None,
                          "peak": float(np.abs(a).max()) if len(a) else 0.0})
-    emit("sip_call", card=card_info(), model="tiny-real (bf16, Griffin-Lim)",
+    emit("sip_call", card=card_info(), model="tiny-real (fp32, Griffin-Lim)",
          boot_s=call["boot_s"], call_s=call["call_s"], actors=call["handles"],
          directions=out, both_engines_at_once=together, word_acc_min=ACC_MIN,
-         attention_launches=attn_launches, bf16_step_launches=bf16_steps,
+         attention_fp32_launches=attn_launches, fp32_step_launches=steps_k,
          tts_steps_run=steps, stt_encodes=encodes, encode_ms=stt.encode_ms,
          tts_ms_per_tick={lang: eng.tick_ms for lang, eng in tts.items()},
          bob_got_bye=call["bob_got_bye"])
@@ -2061,19 +2184,20 @@ def phase_sip_call(torch, attn, ts):
         check(o["max_abs_diff_alone"] is not None and o["peak"] > SILENT
               and o["max_abs_diff_alone"] <= TOGETHER_TOL * o["peak"],
               f"sip call: the {o['lang']} say at once differs from the say alone: {o}")
-    return attn_launches, bf16_steps, {o["direction"]: o["reply_start_s"] for o in out}
+    return attn_launches, steps_k, {o["direction"]: o["reply_start_s"] for o in out}
 
 
-def call_checks(call, tts, bf16_steps: int, int8_steps: int, what: str) -> dict:
+def call_checks(call, tts, step_launches: int, what: str) -> dict:
     """The checks :func:`drive_sip_call`'s call shares in ``sip_call`` and
-    ``remote_call``: both TTS engines stepped, one bf16 step kernel launch
-    per step and none of the int8 one, Bob got the BYE and no actor thread
-    is left.  Returns the steps per language."""
+    ``remote_call``: both TTS engines stepped, one launch of the step
+    kernel's fp32-cache mode per step (the caller's ``path_launches`` holds
+    the other modes at 0), Bob got the BYE and no actor thread is left.
+    Returns the steps per language."""
     steps = {lang: sum(n // eng.cfg.reduction_factor for n in eng.tick_frames)
              for lang, eng in tts.items()}
-    check(all(steps.values()) and bf16_steps == sum(steps.values()),
-          f"{what}: bf16 step kernel launched {bf16_steps} times for {steps} steps")
-    check(int8_steps == 0, f"{what}: the int8 step kernel launched {int8_steps} times")
+    check(all(steps.values()) and step_launches == sum(steps.values()),
+          f"{what}: fp32-cache step kernel launched {step_launches} times for "
+          f"{steps} steps")
     check(call["bob_got_bye"], f"{what}: Bob did not get the BYE")
     check(not call["actor_threads_left"],
           f"{what}: actor threads left after stop_all: {call['actor_threads_left']}")
@@ -2211,14 +2335,12 @@ class PeerProbe:
 
         return prom_values(render_prometheus(metrics.snapshot()))
 
-    def launches(self, zero: bool = False) -> int:
-        """Kernel 1's launches in the peer (``fused_attention.launches``),
+    def launches(self, zero: bool = False) -> dict:
+        """Every kernel mode's launches in the peer (``ops.launch_counts``),
         set to 0 after the read with ``zero``."""
-        from infernos_tpu_torch.ops import attention as attn
-
-        n = attn.fused_attention.launches
+        n = launch_counts()
         if zero:
-            attn.fused_attention.launches = 0
+            reset_launch_counts()
         return n
 
     def encodes(self, name: str) -> int:
@@ -2327,8 +2449,9 @@ def phase_remote_call(torch, attn, ts, sip_reply=None):
     :data:`REMOTE_DEAD_S`; a new call on the STT handle must raise at once
     and ``stop_all()`` leave no actor thread.  ``sip_reply`` is the
     ``sip_call`` phase's reply start per direction, printed beside this
-    call's.  Returns the launches of kernel 1 (in the peer, the full-width
-    requests' and the call's) and of kernel 2 (here, the call's)."""
+    call's.  Returns the launches of kernel 1 in the peer (the full-width
+    requests', bf16, and the call's, fp32) and of kernel 2 here (the
+    call's, over fp32 caches)."""
     from infernos_tpu_torch.cluster import remote
     from infernos_tpu_torch.cluster.actors import stop_all
     from infernos_tpu_torch.models import presets, tiny_real
@@ -2360,7 +2483,8 @@ def phase_remote_call(torch, attn, ts, sip_reply=None):
         enc0 = peer.probe.ask_sync("encodes", far.name)
         peer.probe.ask_sync("launches", True)  # the remote path starts here
         far_res, far_lat = serve_utterances(far, audios)
-        full_attn = peer.probe.ask_sync("launches")
+        full_attn = path_launches(peer.probe.ask_sync("launches"), "remote call full width",
+                                  fp32=False)[0]
         full_encodes = peer.probe.ask_sync("encodes", far.name) - enc0
         near_res, near_lat = serve_utterances(near, audios)
         near.stop()
@@ -2394,27 +2518,25 @@ def phase_remote_call(torch, attn, ts, sip_reply=None):
         enc0 = peer.probe.ask_sync("encodes", far.name)
 
         def zero_counts():  # the main path starts here, the cluster warm
-            attn.fused_attention.launches = 0
-            ts.fused_decode_step.launches = 0
-            ts.fused_decode_step.launches_int8 = 0
+            reset_launch_counts()
             peer.probe.ask_sync("launches", True)
 
         call = drive_sip_call(on_ready=zero_counts, stt_actr=far, ports=REMOTE_CALL_PORTS)
         torch.cuda.synchronize()
-        here_attn = attn.fused_attention.launches  # read right after it
-        bf16_steps = ts.fused_decode_step.launches
-        int8_steps = ts.fused_decode_step.launches_int8
-        call_attn = peer.probe.ask_sync("launches")
+        here_attn, steps_k = path_launches(launch_counts(), "remote call", fp32=True)
+        call_attn, peer_steps = path_launches(peer.probe.ask_sync("launches"),
+                                              "remote call peer", fp32=True)
         encodes = peer.probe.ask_sync("encodes", far.name) - enc0
         check(call["stt"] is None and call["stt_encodes"] == encodes,
               "remote call: the STT did not run in the peer")
         sp, scfg, stok, secfg = tiny_real.load_tiny_stt("cuda")
-        check(encodes > 0 and call_attn == scfg.encoder_layers * encodes and here_attn == 0,
+        check(encodes > 0 and call_attn == scfg.encoder_layers * encodes and here_attn == 0
+              and peer_steps == 0,
               f"remote call: attention kernel launched {call_attn} times in the peer "
               f"and {here_attn} here for {encodes} encodes in the peer, want "
-              f"{scfg.encoder_layers} each")
+              f"{scfg.encoder_layers} each; {peer_steps} step launches in the peer")
         tts = call["tts"]
-        steps = call_checks(call, tts, bf16_steps, int8_steps, "remote call")
+        steps = call_checks(call, tts, steps_k, "remote call")
         heard_by = stt.STTEngine(sp, scfg, secfg, detokenize=stok.detokenize)
         dirs = heard_directions(heard_by, call)
         for d in dirs:
@@ -2444,11 +2566,11 @@ def phase_remote_call(torch, attn, ts, sip_reply=None):
                 if t.name.startswith("actor:") and t.is_alive()]
     finally:
         peer.close()
-    emit("remote_call", card=out["card"], peer=out["peer"], model="tiny-real (bf16, Griffin-Lim)",
+    emit("remote_call", card=out["card"], peer=out["peer"], model="tiny-real (fp32, Griffin-Lim)",
          peer_start_s=out["peer_start_s"], tiny_start_peer_s=out["tiny_start_peer_s"],
          boot_s=call["boot_s"], call_s=call["call_s"], directions=dirs,
-         word_acc_min=ACC_MIN, peer_attention_launches=call_attn,
-         here_attention_launches=here_attn, bf16_step_launches=bf16_steps,
+         word_acc_min=ACC_MIN, peer_attention_fp32_launches=call_attn,
+         here_attention_launches=here_attn, fp32_step_launches=steps_k,
          tts_steps_run=steps, stt_encodes_in_peer=encodes,
          full_width_attention_launches=full_attn,
          death={"error": repr(err), "seconds": dead_s, "bound_s": REMOTE_DEAD_S,
@@ -2473,7 +2595,7 @@ def phase_remote_call(torch, attn, ts, sip_reply=None):
     check(isinstance(call_err, ConnectionError) and call_raise_s < 0.1,
           f"remote call: a call on the dead link gave {call_err!r} in {call_raise_s:.3f} s")
     check(not left, f"remote call: actor threads left after stop_all: {left}")
-    return full_attn + call_attn, bf16_steps
+    return full_attn, call_attn, steps_k
 
 
 # -- phase 11: the daemon at full width through its entry point -----------------
@@ -2489,7 +2611,7 @@ DAEMON_SAYINGS = ((("please help now", 21), ("want help today", 22)),
 DAEMON_PRELUDE = """
 import json, os, runpy, signal
 from infernos_tpu_torch.cluster import actors
-from infernos_tpu_torch.ops import attention as attn, tts_step as ts
+from infernos_tpu_torch.ops import launch_counts, reset_launch_counts
 
 
 def engines(prefix):
@@ -2501,9 +2623,7 @@ def report(*_):
     stt = engines("stt:")[0]
     tiers = (stt.short, stt.long)
     tts = engines("tts:")
-    work = {"attention": attn.fused_attention.launches,
-            "bf16_step": ts.fused_decode_step.launches,
-            "int8_step": ts.fused_decode_step.launches_int8,
+    work = {**launch_counts(),
             "encoder_layers": tiers[0].cfg.encoder_layers,
             "encodes": sum(len(e.encode_ms) for e in tiers),
             "steps": sum(n // e.cfg.reduction_factor for e in tts for n in list(e.tick_frames)),
@@ -2514,8 +2634,7 @@ def report(*_):
     os.replace(path + ".tmp", path)
 
 
-attn.fused_attention.launches = 0
-ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
+reset_launch_counts()
 signal.signal(signal.SIGUSR2, report)
 runpy.run_module("infernos_tpu_torch", run_name="__main__", alter_sys=True)
 """
@@ -2768,7 +2887,7 @@ def phase_daemon(torch):
         check(calls["steps"] > 0 and calls["bf16_step"] == calls["steps"],
               f"daemon: bf16 step kernel launched {calls['bf16_step']} times for "
               f"{calls['steps']} steps in the calls")
-        check(done["int8_step"] == 0, f"daemon: the int8 step kernel launched {done['int8_step']} times")
+        path_launches(done, "daemon", fp32=False)  # full width: the bf16 modes alone
         d.ok = True
     return calls["attention"], calls["bf16_step"]
 
@@ -3001,10 +3120,10 @@ LLM_TINY_CASES = tuple((attendant_turn(*c), reply) for *c, reply in (
 
 def phase_llm_tiny(torch):
     """Phase ``llm_tiny``: the trained tiny LLM through the port's loader
-    in bf16 on the card, served by the tiny-real actor's engine config;
-    its greedy replies to ``LLM_TINY_CASES`` must be the policy's, word for
-    word (fp32 on the CPU gives them all; a reply bf16 flips is printed
-    with its context)."""
+    in fp32 on the card (the tiny rule), served by the tiny-real actor's
+    engine config; its greedy replies to ``LLM_TINY_CASES`` must be the
+    policy's, word for word (a reply that differs is printed with its
+    context)."""
     import dataclasses
 
     from infernos_tpu_torch.cluster.model_actors import LLM_TINY_REAL_ENGINE
@@ -3014,8 +3133,8 @@ def phase_llm_tiny(torch):
     from infernos_tpu_torch.utils.platform import card_info
 
     params, cfg = tiny_real.load_tiny_llm("cuda")
-    check(params["embed"]["w"].dtype == torch.bfloat16, "llm_tiny: not served in bf16")
-    ecfg = dataclasses.replace(LLM_TINY_REAL_ENGINE, dtype=torch.bfloat16)
+    check(params["embed"]["w"].dtype == torch.float32, "llm_tiny: not served in fp32")
+    ecfg = dataclasses.replace(LLM_TINY_REAL_ENGINE, dtype=torch.float32)
     tok = ByteTokenizer()
     eng = LLMEngine(params, cfg, ecfg, detokenize=tok.detokenize, device="cuda")
     eng.warmup()
@@ -3024,10 +3143,10 @@ def phase_llm_tiny(torch):
     replies = [tok.detokenize(t) for t in run["tokens"]]
     flipped = [{"context": ctx[-1]["content"], "expected": want, "got": got}
                for (ctx, want), got in zip(LLM_TINY_CASES, replies) if got != want]
-    emit("llm_tiny", card=card_info(), model="tiny-real qwen (D 192, 4 layers), bf16",
+    emit("llm_tiny", card=card_info(), model="tiny-real qwen (D 192, 4 layers), fp32",
          replies=replies, flipped=flipped, wall_s=run["wall_s"], dispatches=run["dispatches"],
          gen_s=run["gen_s"])
-    check(not flipped, f"llm_tiny: bf16 replies differ from the policy: {flipped}")
+    check(not flipped, f"llm_tiny: fp32 replies differ from the policy: {flipped}")
 
 
 # -- phase 14: the AI attendant through SIP and the actors, in process --------
@@ -3243,32 +3362,26 @@ def heard_checks(stt_eng, turns):
 
 
 def phase_aia_call(torch, attn, ts):
-    """Phase ``aia_call``: :func:`drive_aia_call` on the card (bf16,
+    """Phase ``aia_call``: :func:`drive_aia_call` on the card (fp32,
     Griffin-Lim).  Checks, per line: the LLM's reply is the policy's (the
     greeting, then the transfer), the says ended and Alice's packets carry
     the audio the TTS emitted (:func:`reply_checks`), and what she heard
     reaches word accuracy 0.6 against what the TTS said
     (:func:`heard_checks`, which also prints it against the policy's reply);
     the kernels the warm cluster's call went through: kernel 1 twice per
-    encode (the tiny STT's 2 layers), kernel 2 (bf16) once per TTS step,
-    int8 never; the session ends at the hang-up and no actor thread is
-    left.  Returns the launch counts (attention, bf16 step)."""
+    encode (the tiny STT's 2 layers) in its fp32 mode, kernel 2 over fp32
+    caches once per TTS step, no other mode; the session ends at the
+    hang-up and no actor thread is left.  Returns the launch counts (the
+    fp32 modes of kernels 1 and 2)."""
     from infernos_tpu_torch.utils.platform import card_info
 
-    def zero_counts():
-        attn.fused_attention.launches = 0
-        ts.fused_decode_step.launches = 0
-        ts.fused_decode_step.launches_int8 = 0
-
-    call = drive_aia_call(on_ready=zero_counts)
+    call = drive_aia_call(on_ready=reset_launch_counts)
     torch.cuda.synchronize()
-    attn_launches = attn.fused_attention.launches
-    bf16_steps = ts.fused_decode_step.launches
-    int8_steps = ts.fused_decode_step.launches_int8
+    attn_launches, fp32_steps = path_launches(launch_counts(), "aia call", fp32=True)
     stt, tts, llm = call["stt"], call["tts"], call["llm"]
     check(all(e.device.type == "cuda" for e in (stt, tts, llm))
-          and stt.ecfg.dtype == llm.ecfg.dtype == torch.bfloat16,
-          "aia call: the attendant's engines do not serve bf16 on the card")
+          and stt.ecfg.dtype == llm.ecfg.dtype == tts.ecfg.dtype == torch.float32,
+          "aia call: the attendant's engines do not serve fp32 on the card")
     encodes = len(stt.encode_ms)
     steps = sum(n // tts.cfg.reduction_factor for n in tts.tick_frames)
     heard, unheard = heard_checks(stt, call["turns"])
@@ -3279,10 +3392,10 @@ def phase_aia_call(torch, attn, ts):
             "tts_first_chunk_s": t.first_chunk_s, "reply_start_s": t.reply_start_s,
             "packets": t.rx_packets, "tts_samples": t.tts_samples,
             "rx_s": len(t.rx) / 8000} | h for t, h in zip(call["turns"], heard)]
-    emit("aia_call", card=card_info(), model="tiny-real STT + LLM + TTS (bf16, Griffin-Lim)",
+    emit("aia_call", card=card_info(), model="tiny-real STT + LLM + TTS (fp32, Griffin-Lim)",
          boot_s=call["boot_s"], call_s=call["call_s"], actors=call["handles"], turns=out,
-         word_acc_bar=ACC_MIN, attention_launches=attn_launches, bf16_step_launches=bf16_steps,
-         int8_step_launches=int8_steps, stt_encodes=encodes, tts_steps_run=steps,
+         word_acc_bar=ACC_MIN, attention_fp32_launches=attn_launches,
+         fp32_step_launches=fp32_steps, stt_encodes=encodes, tts_steps_run=steps,
          encode_ms=stt.encode_ms, tts_ms_per_tick=tts.tick_ms,
          sessions_left=call["sessions_left"], actor_threads_left=call["actor_threads_left"])
     bad = reply_checks(call["turns"]) + unheard
@@ -3290,13 +3403,12 @@ def phase_aia_call(torch, attn, ts):
     check(encodes > 0 and attn_launches == stt.cfg.encoder_layers * encodes,
           f"aia call: attention kernel launched {attn_launches} times for {encodes} "
           f"encodes, want {stt.cfg.encoder_layers} each")
-    check(steps > 0 and bf16_steps == steps,
-          f"aia call: bf16 step kernel launched {bf16_steps} times for {steps} steps")
-    check(int8_steps == 0, f"aia call: the int8 step kernel launched {int8_steps} times")
+    check(steps > 0 and fp32_steps == steps,
+          f"aia call: fp32-cache step kernel launched {fp32_steps} times for {steps} steps")
     check(call["sessions_left"] == 0, "aia call: the session outlived the hang-up")
     check(not call["actor_threads_left"],
           f"aia call: actor threads left after stop_all: {call['actor_threads_left']}")
-    return attn_launches, bf16_steps
+    return attn_launches, fp32_steps
 
 
 # -- phase 15: the daemon at full width with the AI attendant -----------------
@@ -3402,8 +3514,7 @@ def phase_daemon_aia(torch):
         check(calls["steps"] > 0 and calls["bf16_step"] == calls["steps"],
               f"daemon_aia: bf16 step kernel launched {calls['bf16_step']} times for "
               f"{calls['steps']} steps")
-        check(done["int8_step"] == 0,
-              f"daemon_aia: the int8 step kernel launched {done['int8_step']} times")
+        path_launches(done, "daemon_aia", fp32=False)  # full width: the bf16 modes alone
         d.ok = True
     return calls["attention"], calls["bf16_step"]
 
@@ -3420,7 +3531,7 @@ def phase_daemon_aia(torch):
 BENCH_PRELUDE = """
 import importlib, json, os, sys, threading
 import infernos_tpu_torch.main as entry
-from infernos_tpu_torch.ops import attention as attn, tts_step as ts
+from infernos_tpu_torch.ops import launch_counts, reset_launch_counts
 from infernos_tpu_torch.serving import stt_engine, tts_engine
 
 made = {"stt": [], "tts": []}
@@ -3436,9 +3547,7 @@ def keep(cls, kind):
 
 
 def report(tag):  # written whole, then renamed: actors warm up in threads
-    work = {"attention": attn.fused_attention.launches,
-            "bf16_step": ts.fused_decode_step.launches,
-            "int8_step": ts.fused_decode_step.launches_int8,
+    work = {**launch_counts(),
             "encoder_layers": sorted({e.cfg.encoder_layers for e in made["stt"]}),
             "encodes": sum(len(e.encode_ms) for e in made["stt"]),
             "encoder_layer_runs": sum(e.cfg.encoder_layers * len(e.encode_ms) for e in made["stt"]),
@@ -3476,14 +3585,14 @@ warm_then_report(stt_engine.STTEngine)
 warm_then_report(tts_engine.TTSEngine)
 entry.build_cluster = build_cluster
 os._exit = exit_now
-attn.fused_attention.launches = 0
-ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
+reset_launch_counts()
 module = sys.argv[1]
 sys.argv = [module] + sys.argv[2:]
 importlib.import_module(module).main()
 report("done")
 """
-WORK_KEYS = ("attention", "bf16_step", "int8_step", "encodes", "encoder_layer_runs", "steps")
+LAUNCH_KEYS = (*ATTN_KEY.values(), *STEP_KEY.values())
+WORK_KEYS = (*LAUNCH_KEYS, "encodes", "encoder_layer_runs", "steps")
 
 
 def run_bench(name: str, module: str, args, timeout: float, env_extra=None) -> dict:
@@ -3531,24 +3640,29 @@ def run_bench(name: str, module: str, args, timeout: float, env_extra=None) -> d
     return r
 
 
-def bench_launches(r, name: str, stt: bool = True, tts: bool = True) -> dict:
+def bench_launches(r, name: str, stt: bool = True, tts: bool = True,
+                   fp32: bool = False) -> dict:
     """The kernels a bench run launched on its path (after its engines'
     last warm-up or its cluster's start; its whole run when it warmed up
     nothing, as ``ttsprobe``, whose first tick is its own), held to
     its engines' work: kernel 1 once per encoder layer per encode, kernel 2
-    (bf16) once per TTS step, int8 never.  ``stt``/``tts``: whether the
-    bench runs that engine (its kernel must then launch, else never)."""
+    (dense weights) once per TTS step, in the bf16 modes at full width and
+    the fp32 modes with ``fp32`` (tiny-real); no other mode, in its whole
+    run.  ``stt``/``tts``: whether the bench runs that engine (its kernel
+    must then launch, else never).  The path's counts in its modes come
+    back under ``kernel1`` and ``kernel2`` beside every mode's."""
     check("done" in r.work, f"{name}: the bench reported no kernel launches")
     done, warm = r.work["done"], r.work.get("warm", dict.fromkeys(WORK_KEYS, 0))
     calls = {k: done[k] - warm[k] for k in WORK_KEYS}
-    check(calls["attention"] == calls["encoder_layer_runs"]
+    path_launches(done, name, fp32)  # no launch of another mode, warm-ups included
+    calls["kernel1"], calls["kernel2"] = path_launches(calls, name, fp32)
+    check(calls["kernel1"] == calls["encoder_layer_runs"]
           and (calls["encodes"] > 0) == stt,
-          f"{name}: attention kernel launched {calls['attention']} times for "
+          f"{name}: attention kernel launched {calls['kernel1']} times for "
           f"{calls['encodes']} encodes of {done['encoder_layers']} layers")
-    check(calls["bf16_step"] == calls["steps"] and (calls["steps"] > 0) == tts,
-          f"{name}: bf16 step kernel launched {calls['bf16_step']} times for "
+    check(calls["kernel2"] == calls["steps"] and (calls["steps"] > 0) == tts,
+          f"{name}: step kernel launched {calls['kernel2']} times for "
           f"{calls['steps']} steps")
-    check(done["int8_step"] == 0, f"{name}: the int8 step kernel launched {done['int8_step']} times")
     return calls
 
 
@@ -3585,23 +3699,24 @@ def phase_paced_tts(torch):
           f"paced_tts: the bench ran on {d['platform']} {d['device']}")
     check(d["levels"] and all(lv["utterances"] > 0 for lv in d["levels"]),
           f"paced_tts: a level spoke no utterance: {d['levels']}")
-    return calls["bf16_step"]
+    return calls["kernel2"]
 
 
 def phase_lt_bench_tiny(torch):
     """Phase ``lt_bench_tiny``: ``python -m infernos_tpu_torch.bench.ltbench
     --tiny-real --calls 4 --turns 2``: four concurrent two-leg calls through
     SIP, the actors, VAD, the trained tiny STT, T2T and the tiny TTS
-    (bf16), each Alice speaking two speech-language lines.  Checks: 4
+    (fp32), each Alice speaking two speech-language lines.  Checks: 4
     answered, 8 turns measured, no failed turn, the child's exit 0, and the
-    calls' kernel launches (kernel 1 = 2 x encodes).  Prints the turn
-    latency p50/p95.  Returns the calls' launches (attention, bf16 step)."""
+    calls' kernel launches in the fp32 modes (kernel 1 = 2 x encodes).
+    Prints the turn latency p50/p95.  Returns the calls' launches (kernels
+    1 and 2)."""
     from infernos_tpu_torch.utils.platform import card_info
 
     r = run_bench("lt_bench_tiny", "infernos_tpu_torch.bench.ltbench",
                   ["--tiny-real", "--calls", "4", "--turns", "2"], timeout=300)
     res = r.lines[-1] if r.lines else {}
-    calls = bench_launches(r, "lt_bench_tiny") if r.rc == 0 else None
+    calls = bench_launches(r, "lt_bench_tiny", fp32=True) if r.rc == 0 else None
     emit("lt_bench_tiny", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
          launches=calls)
     check(r.rc == 0, f"lt_bench_tiny: ltbench exited {r.rc}")
@@ -3609,7 +3724,7 @@ def phase_lt_bench_tiny(torch):
           f"lt_bench_tiny: want 4 answered, 8 turns measured, 0 failures: {res}")
     check(r.work["done"]["encoder_layers"] == [2],
           f"lt_bench_tiny: encoder layers {r.work['done']['encoder_layers']}, want the tiny STT's 2")
-    return calls["attention"], calls["bf16_step"]
+    return calls["kernel1"], calls["kernel2"]
 
 
 LT_RAMP_LEVELS = "1,2"  # level 4 never passed (lt_calls_per_chip 1-2); its tries cost most
@@ -3659,31 +3774,31 @@ def phase_lt_ramp(torch):
     check(r.work["done"]["encoder_layers"] == [32],
           f"lt_ramp: encoder layers {r.work['done']['encoder_layers']}, want large-v3's 32")
     check(calls["encodes"] >= 2, f"lt_ramp: {calls['encodes']} encodes in the levels")
-    return calls["attention"], calls["bf16_step"]
+    return calls["kernel1"], calls["kernel2"]
 
 
 def phase_loopback(torch):
     """Phase ``loopback``: ``python -m infernos_tpu_torch.bench.loopback
     --speakers 4 --prompts 2``: the tiny-real TTS speaks each prompt in each
-    voice (bf16), the tiny-real STT transcribes it.  Checks: the mean
+    voice (fp32), the tiny-real STT transcribes it.  Checks: the mean
     similarity reaches ``LOOPBACK_BAR`` (the reference package's mean on
-    the same cells on the CPU, less 0.1), the kernel launches.  Prints the
-    mean, its distribution and the cells' transcripts.  Returns the
-    launches (attention, bf16 step)."""
+    the same cells on the CPU, less 0.1), the kernel launches in the fp32
+    modes.  Prints the mean, its distribution and the cells' transcripts.
+    Returns the launches (kernels 1 and 2)."""
     from infernos_tpu_torch.utils.platform import card_info
 
     r = run_bench("loopback", "infernos_tpu_torch.bench.loopback",
                   ["--speakers", "4", "--prompts", "2"], timeout=300)
     check(r.rc == 0 and r.lines, f"loopback: the bench exited {r.rc}")
     res = r.lines[-1]
-    calls = bench_launches(r, "loopback")
+    calls = bench_launches(r, "loopback", fp32=True)
     emit("loopback", card=card_info(), seconds=r.seconds, similarity=res["value"],
          bar=LOOPBACK_BAR, detail=res["detail"], launches=calls)
     check(res["detail"]["voices_scored"] == 4 and res["detail"]["prompts_per_voice"] == 2,
           f"loopback: scored {res['detail']}")
     check(res["value"] >= LOOPBACK_BAR,
           f"loopback: mean similarity {res['value']} under the bar {LOOPBACK_BAR:.4f}")
-    return calls["attention"], calls["bf16_step"]
+    return calls["kernel1"], calls["kernel2"]
 
 
 # -- phases 20-27: the quality ladder, the engine and attendant benches, the
@@ -3763,7 +3878,7 @@ def phase_stt_ladder(torch, attn, stt_params=None):
     eng._needs_fallback = gate
     before = {k: metrics.counters.get(k, 0) for k in ("stt.fallback_retries",
                                                        "stt.beam_redecodes")}
-    attn.fused_attention.launches = 0  # the main path starts here
+    reset_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -3772,7 +3887,7 @@ def phase_stt_ladder(torch, attn, stt_params=None):
         steps += 1
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = attn.fused_attention.launches  # read right after the main path
+    launches = path_launches(launch_counts(), "stt_ladder", fp32=False)[0]  # right after it
     encodes = len(eng.encode_ms)
     grew = {k: metrics.counters.get(k, 0) - v for k, v in before.items()}
     n = len(audios)
@@ -3883,7 +3998,7 @@ def phase_sttbench(torch):
           f"sttbench: {res['utterances']} of 16 utterances, {calls['encodes']} encodes")
     check(r.work["done"]["encoder_layers"] == [32],
           f"sttbench: encoder layers {r.work['done']['encoder_layers']}")
-    return calls["attention"]
+    return calls["kernel1"]
 
 
 def phase_ttsbench(torch):
@@ -3902,7 +4017,7 @@ def phase_ttsbench(torch):
     emit("ttsbench", card=card_info(), seconds=r.seconds, result=res, launches=calls)
     check(res["sessions"] == 16 and len(res["frames"]) == 16 and min(res["frames"]) > 0,
           f"ttsbench: {res['sessions']} reports, frames {res['frames']}")
-    return calls["bf16_step"]
+    return calls["kernel2"]
 
 
 def phase_ttsprobe(torch):
@@ -3920,7 +4035,7 @@ def phase_ttsprobe(torch):
     calls = bench_launches(r, "ttsprobe", stt=False)
     emit("ttsprobe", card=card_info(), seconds=r.seconds, result=res, launches=calls)
     check(0 < res["tick_p50_ms"] <= res["tick_p95_ms"], f"ttsprobe: {res}")
-    return calls["bf16_step"]
+    return calls["kernel2"]
 
 
 LLM_BENCH_ARGS = ["--dims", "7b", "--slots", "8", "--new", "48", "--reqs", "16",
@@ -3946,8 +4061,7 @@ def phase_llmbench(torch):
         d = res["detail"]
         check(d["finished"] == 16 and d["tokens"] == 16 * 48,
               f"llmbench {mode}: {d['finished']} finished, {d['tokens']} tokens")
-        check(r.work["done"]["attention"] == 0 and r.work["done"]["bf16_step"] == 0
-              and r.work["done"]["int8_step"] == 0,
+        check(all(r.work["done"][k] == 0 for k in LAUNCH_KEYS),
               f"llmbench {mode}: a port kernel launched: {r.work['done']}")
         out[mode] = {"seconds": r.seconds, "llm_decode_tok_per_s": res["value"],
                      "unit": res["unit"], **d}
@@ -4293,7 +4407,10 @@ def phase_parallel(torch) -> dict:
     for r in res:
         check(r["backend"] == "gloo" and r["device"] == "cuda:0",
               f"dryrun: rank {r['rank']} on {r['device']} over {r['backend']}")
-        check(r["launches"]["tts"]["bf16_step"] > 0 and r["launches"]["stt"]["attention"] > 0,
+        # the dry run's engines are fp32, as the reference's: the fp32 modes alone
+        tts_steps = path_launches(r["launches"]["tts"], "dryrun tts", fp32=True)[1]
+        stt_attn = path_launches(r["launches"]["stt"], "dryrun stt", fp32=True)[0]
+        check(tts_steps > 0 and stt_attn > 0,
               f"dryrun: rank {r['rank']} launched {r['launches']}")
         check(not r["modules"], f"dryrun: rank {r['rank']} loaded {r['modules']}")
 
@@ -4330,7 +4447,7 @@ def phase_parallel(torch) -> dict:
          tp_14b_s=run["tp_s"], nccl_1_s=run["one_s"], reference_s=run["ref_s"])
     return {f"dryrun_rank{r['rank']}": r["launches"] for r in res}
 
-AIA_SILENT_TURNS = 2  # the most turns the tiny LLM leaves unanswered in bf16 on the card
+AIA_SILENT_TURNS = 2  # the most turns the tiny LLM may leave unanswered on the card
 
 
 def aia_turns(log: str) -> list:
@@ -4355,20 +4472,19 @@ def aia_turns(log: str) -> list:
 def phase_aia_bench(torch):
     """Phase ``aia_bench``: ``python -m infernos_tpu_torch.bench.aiabench
     --tiny-real --calls 2 --turns 2 --turn-timeout 10``: two attendant
-    calls over SIP on the trained tiny trio (bf16), the sessions' DEBUG log
+    calls over SIP on the trained tiny trio (fp32), the sessions' DEBUG log
     on (a reply takes about 2.6 s; a turn the LLM leaves unanswered waits
-    10 s, not the default 90).  Checks: 2 answered; of the 4 turns, 1 to
+    10 s, not the default 90).  Checks: 2 answered; of the 4 turns, at most
     ``AIA_SILENT_TURNS`` (2) failed, each one the tiny LLM answered with
-    ``<nothingtosay>``, a turn heard as "can me speak with meu" among them
-    (bf16 on the card left it unanswered in every run; fp32 on the CPU
-    answers it), and the others measured a reply.  How many depends on
-    what the tiny STT hears, which the VAD's cuts of the paced RTP stream
-    move from run to run: "what is my order tatus" (silent) or "...
-    status" (answered); 1 in fp32 on the CPU, in the port and in the
-    reference package alike.  Also
-    the calls' launches (kernel 1 = 2 x encodes, kernel 2 = steps).  Prints
-    the reply latency p50/p95, the STT texts and the LLM replies.  Returns
-    (attention, bf16 step) launches."""
+    ``<nothingtosay>``, and the others measured a reply.  How many depends
+    on what the tiny STT hears, which the VAD's cuts of the paced RTP
+    stream move from run to run: "what is my order tatus" (silent) or
+    "... status" (answered); 1 in fp32 on the CPU, in the port and in the
+    reference package alike.  (The card's bf16 runs also left "can me
+    speak with meu" unanswered, which fp32 on the CPU answers; those turns
+    are printed.)  Also the calls' launches in the fp32 modes (kernel 1 =
+    2 x encodes, kernel 2 = steps).  Prints the reply latency p50/p95, the
+    STT texts and the LLM replies.  Returns (kernel 1, kernel 2) launches."""
     from infernos_tpu_torch.utils.platform import card_info
 
     r = run_bench("aia_bench", "infernos_tpu_torch.bench.aiabench",
@@ -4380,18 +4496,16 @@ def phase_aia_bench(torch):
     silent = sum(rep.startswith("'<nothingtosay>'") for rep in replies)
     turns = aia_turns(r.err)
     speak = [t for t in turns if any("speak with" in h for h in t[0])]
-    calls = bench_launches(r, "aia_bench") if r.rc == 0 else None
+    calls = bench_launches(r, "aia_bench", fp32=True) if r.rc == 0 else None
     emit("aia_bench", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
-         stt=heard, llm=replies, launches=calls)
+         stt=heard, llm=replies, speak_with_turns=speak, launches=calls)
     check(r.rc == 0, f"aia_bench: aiabench exited {r.rc}")
     check(res.get("answered") == 2 and res["turns"] == 4 - silent,
           f"aia_bench: want 2 answered and {4 - silent} turns measured: {res}")
-    check(res["failures"] == silent and 1 <= silent <= AIA_SILENT_TURNS,
+    check(res["failures"] == silent and silent <= AIA_SILENT_TURNS,
           f"aia_bench: {res['failures']} failed turns, {silent} silent replies, want "
-          f"each failure silent, 1 to {AIA_SILENT_TURNS}: {replies}")
-    check(all(any(rep.startswith("'<nothingtosay>'") for rep in t[1]) for t in speak),
-          f"aia_bench: a turn heard as 'can me speak with ...' was answered: {speak}")
-    return calls["attention"], calls["bf16_step"]
+          f"each failure silent, at most {AIA_SILENT_TURNS}: {replies}")
+    return calls["kernel1"], calls["kernel2"]
 
 
 def phase_echo(torch):
@@ -4405,14 +4519,14 @@ def phase_echo(torch):
     r = run_bench("echo", "infernos_tpu_torch.bench.echo",
                   ["--tiny-real", "--utterances", "2"], timeout=300)
     res = r.lines[-1] if r.lines else {}
-    calls = bench_launches(r, "echo") if r.rc == 0 else None
+    calls = bench_launches(r, "echo", fp32=True) if r.rc == 0 else None
     emit("echo", card=card_info(), seconds=r.seconds, exit_code=r.rc, result=res,
          launches=calls)
     check(r.rc == 0, f"echo: the bench exited {r.rc}")
     check(len(res.get("echo_latency_s", [])) == 2 and len(res.get("stt_latency_s", [])) == 2,
           f"echo: want an echo and an STT latency per utterance: {res}")
     check(res["rx_audio_s"] > 0, f"echo: no echoed audio: {res}")
-    return calls["attention"], calls["bf16_step"]
+    return calls["kernel1"], calls["kernel2"]
 
 
 RAMP_PROFILE_HZ = "200"
@@ -4473,7 +4587,7 @@ def phase_ramp_profile(torch):
           f"ramp_profile: {sampled_s:.1f} s sampled over {levels_s:.1f} s of levels")
     check(not any("warmup" in k or "build_cluster" in k for k, _ in prof["on_cpu_stacks"]),
           "ramp_profile: the dump holds the boot's stacks")
-    return calls["attention"], calls["bf16_step"]
+    return calls["kernel1"], calls["kernel2"]
 
 
 # -- phase 28: HF-layout weights through port_from_hf, a checkpoint and the
@@ -5152,8 +5266,7 @@ def phase_ckpt_port(torch, attn, setup=None):
         return logits
 
     results, done = [], threading.Event()
-    attn.fused_attention.launches = 0  # the bf16 main path starts here
-    ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
+    reset_launch_counts()  # the bf16 main path starts here
     with mock.patch.object(seng, "_join", rec_join), \
             mock.patch.object(wsp, "encode", rec_encode), \
             mock.patch.object(wsp, "decode_step", rec_decode_step):
@@ -5165,13 +5278,14 @@ def phase_ckpt_port(torch, attn, setup=None):
         check(done.wait(120.0), "ckpt_port: the STT actor did not call back")
         stt_s = time.perf_counter() - t0
     said = say_recorded(torch, ttsact, FIXED_SENTENCE, st5, tts_engine)
-    attn_launches = attn.fused_attention.launches  # read right after the main path
-    step_launches = ts.fused_decode_step.launches
-    int8_launches = ts.fused_decode_step.launches_int8
-    ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0  # the int8 path
+    c = launch_counts()  # read right after the main path: full width, the bf16 modes
+    attn_launches, step_launches = path_launches(c, "ckpt_port", fp32=False)
+    int8_launches = c["int8_step"]
+    reset_launch_counts()  # the int8 path
     said8 = say_recorded(torch, ttsq, FIXED_SENTENCE, st5, tts_engine)
-    q_bf16_launches = ts.fused_decode_step.launches
-    q_launches = ts.fused_decode_step.launches_int8  # read right after the int8 path
+    c = launch_counts()  # read right after the int8 path
+    q_launches = path_launches(c, "ckpt_port int8", fp32=False, int8=True)[1]
+    q_bf16_launches = c["bf16_step"]
     encodes = len(seng.encode_ms) - enc0
     sttact.on_stop()
     for a in (ttsact, ttsq):
@@ -5180,7 +5294,8 @@ def phase_ckpt_port(torch, attn, setup=None):
 
     # the weights as the engines serve them (bf16 on the card), widened to fp32
     def served(tree):
-        return cast_floating(cast_floating(tree, serving_dtype(device)), torch.float32)
+        return cast_floating(cast_floating(tree, serving_dtype(device, tiny=False)),
+                             torch.float32)
 
     # the engine's encoder output against the plain encode in fp32
     w32 = served(loaded["whisper"])
@@ -5288,7 +5403,8 @@ def phase_ckpt_port(torch, attn, setup=None):
     for f in CKPT_FAULTS:
         faults[f]["tts_step_rel_err_max"] = tts_faults[f]
     tts8, tts8_faults = tts_check(
-        said8, dequantized(torch, cast_floating(loaded["speecht5_int8"], serving_dtype(device))),
+        said8, dequantized(torch, cast_floating(loaded["speecht5_int8"],
+                                                serving_dtype(device, tiny=False))),
         "tts_int8")
     for f in CKPT_FAULTS:
         faults[f]["tts_int8_step_rel_err_max"] = tts8_faults[f]
@@ -5373,15 +5489,16 @@ def phase_examples(torch, tiny: bool = False):
     voc = presets.HIFIGAN_TINY if tiny else presets.HIFIGAN_FULL
     tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
     try:
-        ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0  # path starts
+        reset_launch_counts()  # the path starts here
         t0 = time.perf_counter()
         written = tts_stream.main([*EXAMPLE_TEXTS, "--out", tmp] + ([] if tiny else ["--full"]))
         tts_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         lat = llm_test.main(*EXAMPLE_LLM)
         llm_s = time.perf_counter() - t0
-        launches = ts.fused_decode_step.launches  # read right after the path
-        int8_launches = ts.fused_decode_step.launches_int8
+        c = launch_counts()  # read right after the path
+        launches = path_launches(c, "examples", fp32=tiny)[1]
+        int8_launches = c["int8_step"]
         wavs = []
         for path in sorted(written):
             with wave.open(path) as w:
@@ -5410,14 +5527,17 @@ def phase_examples(torch, tiny: bool = False):
 # -- phase train: the trainers on the card, through a differentiable kernel 1 ---
 
 # dq/dk/dv of KernelAttention against fp32 autograd of the plain attention on
-# the same bf16 inputs: its backward recomputes that same fp32 attention, so
-# the two differ by the rounding of each gradient to bf16 (2^-9 relative) and
-# the bf16 output's own rounding in the reference's chain (relative L2)
+# the same inputs: its backward recomputes that same fp32 attention.  bf16
+# inputs: the two differ by the rounding of each gradient to bf16 (2^-9
+# relative) and the bf16 output's own rounding in the reference's chain; fp32
+# inputs (the trainers'): by the order of sums only (relative L2)
 TRAIN_GRAD_REL_TOL = 4e-3
-# one STT step, kernel route against the plain route on the card, both with
-# a bf16 forward: the loss and the encoder q/k/v gradients (relative L2)
-TRAIN_LOSS_REL_TOL = 1e-2
-TRAIN_STEP_REL_TOL = 5e-2
+TRAIN_GRAD_FP32_REL_TOL = 1e-5
+# one STT step in fp32, kernel route against the plain route on the card: the
+# loss and the encoder q/k/v gradients (relative L2), which differ by the
+# attention forward's order of sums, carried through two layers and back
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_STEP_REL_TOL = 1e-3
 TRAIN_STEPS = 30  # steps per trainer on its pool
 # the mean loss of a trainer's last 5 steps must be below this share of its
 # first step's loss, on a pool of 2 batches (a run that learns nothing fails)
@@ -5433,36 +5553,43 @@ def rel_l2_t(torch, got, want) -> float:
 
 def train_attention_grads(torch, attn) -> list:
     """``KernelAttention`` (the kernel's forward, the reference's backward)
-    against fp32 autograd of the plain attention on the same bf16 inputs, at
-    whisper-large-v3's width (``[2, 1500, 1280]``, 20 heads) and at the tiny
-    STT's (``[4, 250, 256]``, 4 heads), each with and without a key mask;
-    the forward and the backward timed at large-v3 width."""
+    against fp32 autograd of the plain attention on the same inputs: fp32
+    (the trainers' dtype, the kernel's fp32 mode) at whisper-large-v3's
+    width (``[2, 1500, 1280]``, 20 heads) and at the tiny STT's (``[4,
+    250, 256]``, 4 heads), each with and without a key mask, and bf16 at
+    large-v3 width; the forward and the backward timed at large-v3 width
+    in both dtypes."""
     g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     cases = []
-    for B, S, H, masked in ((2, 1500, 20, False), (2, 1500, 20, True),
-                            (4, 250, 4, False), (4, 250, 4, True)):
+    for dt, B, S, H, masked in ((torch.float32, 2, 1500, 20, False),
+                                (torch.float32, 2, 1500, 20, True),
+                                (torch.float32, 4, 250, 4, False),
+                                (torch.float32, 4, 250, 4, True),
+                                (torch.bfloat16, 2, 1500, 20, False)):
+        fp32 = dt == torch.float32
         q, k, v = (torch.randn((B, S, H * 64), generator=g, device="cuda")
-                   .to(torch.bfloat16).requires_grad_() for _ in range(3))
-        gout = torch.randn((B, S, H * 64), generator=g, device="cuda").to(torch.bfloat16)
+                   .to(dt).requires_grad_() for _ in range(3))
+        gout = torch.randn((B, S, H * 64), generator=g, device="cuda").to(dt)
         mask = None
         if masked:
             lens = torch.randint(S // 2, S + 1, (B,), generator=g, device="cuda")
             mask = torch.arange(S, device="cuda")[None] < lens[:, None]
-        before = attn.fused_attention.launches
+        before = launch_counts()
         out = attn.fused_attention(q, k, v, n_heads=H, mask=mask)
-        launched = attn.fused_attention.launches - before
-        check(out.grad_fn is not None and launched == 1,
-              f"train: attention under grad made no autograd node or {launched} launches")
+        moved = {m: n - before[m] for m, n in launch_counts().items() if n != before[m]}
+        check(out.grad_fn is not None and moved == {ATTN_KEY[fp32]: 1},
+              f"train: attention under grad made no autograd node or launched {moved}")
         grads = torch.autograd.grad(out, (q, k, v), gout, retain_graph=True)
         ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
         ref = attn.by_heads(attn._plain_attention, *ref_in, n_heads=H, mask=mask)
         ref_grads = torch.autograd.grad(ref, ref_in, gout.float(), retain_graph=True)
         torch.cuda.synchronize()
-        case = {"B": B, "S": S, "heads": H, "masked": masked,
-                "out_max_abs_err": (out.float() - ref).abs().max().item(),
+        case = {"dtype": str(dt).replace("torch.", ""), "B": B, "S": S, "heads": H,
+                "masked": masked, "out_max_abs_err": (out.float() - ref).abs().max().item(),
+                "out_rel_l2": rel_l2_t(torch, out, ref),
                 **{f"d{n}_rel_l2": rel_l2_t(torch, a, b)
                    for n, a, b in zip("qkv", grads, ref_grads)}}
-        if B == 2 and not masked:  # the timed case, large-v3 width
+        if B == 2 and not masked:  # the timed cases, large-v3 width
             def fwd():
                 with torch.no_grad():
                     attn.fused_attention(q, k, v, n_heads=H)
@@ -5472,12 +5599,14 @@ def train_attention_grads(torch, attn) -> list:
             case["plain_fp32_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 ref, ref_in, gout.float(), retain_graph=True), 5)
         cases.append(case)
+        tol = TRAIN_GRAD_FP32_REL_TOL if fp32 else TRAIN_GRAD_REL_TOL
         for n in "qkv":
             err = case[f"d{n}_rel_l2"]
-            check(math.isfinite(err) and err <= TRAIN_GRAD_REL_TOL,
-                  f"train: d{n} at {B}x{S}x{H * 64} masked={masked}: rel L2 {err}")
-        check(case["out_max_abs_err"] <= ATTN_TOL,
-              f"train: attention forward max abs err {case['out_max_abs_err']}")
+            check(math.isfinite(err) and err <= tol,
+                  f"train: d{n} at {dt} {B}x{S}x{H * 64} masked={masked}: rel L2 {err}")
+        check(case["out_rel_l2"] <= ATTN_FP32_REL_TOL if fp32
+              else case["out_max_abs_err"] <= ATTN_TOL,
+              f"train: attention forward error {case}")
         del out, ref, grads, ref_grads
     return cases
 
@@ -5519,19 +5648,18 @@ def train_stt_step_routes(torch, attn, tr, optim, params, cfg, batch) -> dict:
         with contextlib.ExitStack() as st:
             if route is not None:
                 st.enter_context(mock.patch.object(wsp, "fused_attention", route))
-            with optim.autocast("cuda"):
-                loss, _ = tr.loss_fn(optim.forward_params(params, "cuda"), cfg, *batch)
+            loss, _ = tr.loss_fn(params, cfg, *batch)
             grads = torch.autograd.grad(loss, leaves)
             return loss.detach().float(), grads
 
     def plain(q, k, v, *, n_heads, mask=None):
         return attn.by_heads(attn._plain_attention, q, k, v, n_heads=n_heads, mask=mask)
 
-    before = attn.fused_attention.launches
+    before = attn.fused_attention.launches_fp32
     loss_k, g_k = step(None)
-    launches = attn.fused_attention.launches - before
+    launches = attn.fused_attention.launches_fp32 - before
     loss_p, g_p = step(plain)
-    check(attn.fused_attention.launches - before == launches,
+    check(attn.fused_attention.launches_fp32 - before == launches,
           "train: the plain route launched the kernel")
     check(launches == cfg.encoder_layers,
           f"train: one STT step launched kernel 1 {launches} times, want "
@@ -5573,8 +5701,9 @@ def phase_train(torch, attn):
     (STT, SpeechT5, HiFi-GAN, LLM, VAD, AmendNet) for ``TRAIN_STEPS`` steps on
     a pool of two pre-built batches, its loss finite and falling, its
     checkpoint saved under ``infernos_tpu_torch/build/trained`` and served
-    once through the port's loaders.  Returns kernel 1's launches in the STT
-    trainer's run (counted from 0 before it)."""
+    once through the port's loaders.  fp32 throughout, as the reference
+    trains.  Returns kernel 1's fp32 launches in the STT trainer's run
+    (counted from 0 before it)."""
     from infernos_tpu_torch.models import amendnet, qwen, tiny_real, vad
     from infernos_tpu_torch.models import whisper as wsp
     from infernos_tpu_torch.serving import stt_engine as stt
@@ -5617,10 +5746,10 @@ def phase_train(torch, attn):
 
     # (c) each trainer on its pool, saved and served
     opt = tr_stt.make_optimizer(sparams, 3e-4, TRAIN_STEPS)
-    attn.fused_attention.launches = 0
+    reset_launch_counts()
     out["tiny_stt"] = run_trainer(torch, "tiny_stt", lambda n: tr_stt.train(
         sparams, scfg, opt, lambda i: stt_pool[i % 2], n, dev, log_every=0))
-    train_launches = attn.fused_attention.launches
+    train_launches = path_launches(launch_counts(), "train", fp32=True)[0]
     check(train_launches == scfg.encoder_layers * TRAIN_STEPS,
           f"train: the STT trainer launched kernel 1 {train_launches} times in "
           f"{TRAIN_STEPS} steps")
@@ -5628,7 +5757,7 @@ def phase_train(torch, attn):
     tr_stt.save(path, sparams, scfg, stok)
     with data_override("tiny_stt", path):
         p, c, tok, ecfg = tiny_real.load_tiny_stt(dev)
-    check(p["enc_layers"]["attn"]["q"]["w"].dtype == torch.bfloat16, "train: STT not bf16")
+    check(p["enc_layers"]["attn"]["q"]["w"].dtype == torch.float32, "train: STT not fp32")
     eng = stt.STTEngine(p, c, ecfg, detokenize=tok.detokenize, device=dev)
     got = []
     audio, _ = tr_stt.make_utterance(np.random.default_rng(3), n_words=(2, 3), lang="en")
@@ -5657,7 +5786,7 @@ def phase_train(torch, attn):
     check(table.shape == (tr_tts.N_SPEAKERS, tr_tts.SPK_DIM), "train: speaker table")
     teng = tts.TTSEngine(tp, tc, vp, vc, tts.TTSEngineConfig(
         batch_slots=1, max_text_tokens=48, max_steps=32, stop_threshold=0.5,
-        dtype=torch.bfloat16), device=dev)
+        dtype=torch.float32), device=dev)
     chunks, done = [], []
     teng.start_session(np.asarray(tk("hello now"), np.int32), table[0],
                        lambda a: done.append(1) if a is None else chunks.append(a))
@@ -5703,8 +5832,9 @@ def phase_train(torch, attn):
     check(bool(torch.isfinite(amended).all()), "train: the retrained AmendNet is not finite")
     served["amendnet"] = {"samples": int(amended.shape[1])}
 
-    emit("train", card=card_info(), tol=TRAIN_GRAD_REL_TOL, step_tol=TRAIN_STEP_REL_TOL,
-         precision="fp32 masters and AdamW state, bf16 forward (autocast over a bf16 copy)",
+    emit("train", card=card_info(), tol=TRAIN_GRAD_REL_TOL, fp32_tol=TRAIN_GRAD_FP32_REL_TOL,
+         step_tol=TRAIN_STEP_REL_TOL, loss_tol=TRAIN_LOSS_REL_TOL,
+         precision="fp32 parameters, AdamW state and forward, as the reference trains",
          attention=grads, stt_step_routes=routes, pools_s=pools_s,
          trainers={k: {**v, "step_ms": 1e3 * v["wall_s"] / v["steps"]} for k, v in out.items()},
          served=served, stt_train_kernel_launches=train_launches,
@@ -5729,17 +5859,20 @@ def device_launches(torch, fn) -> int:
 
 def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
     """Counts, with the profiler, the kernels and copies of one
-    ``fused_attention`` call at the encoder's shape (want 1: the kernel),
-    of the same kernel behind a head split, of one ``fused_decode_step``
-    call at full width in each weight mode (``step_calls``: the step
-    phases' own calls; want 1 each), and of one ``whisper.encode``.
+    ``fused_attention`` call at the encoder's shape in bf16 and in fp32
+    (want 1: the kernel), of the bf16 kernel behind a head split, of one
+    ``fused_decode_step`` call at full width in each mode (``step_calls``:
+    the step phases' own calls; want 1 each), and of one ``whisper.encode``.
     It runs last: once the profiler has been on, every later launch of the
     process costs the host more, which would spoil the phases' host clocks."""
     g = torch.Generator(device="cuda").manual_seed(8)
     q, k, v = (torch.randn((1, 1500, 1280), generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
     out = {"fused_attention": device_launches(
                torch, lambda: attn.fused_attention(q, k, v, n_heads=20)),
+           "fused_attention_fp32": device_launches(
+               torch, lambda: attn.fused_attention(q32, k32, v32, n_heads=20)),
            "split_heads": device_launches(
                torch, lambda: attn.by_heads(attn._kernel_attention, q, k, v,
                                             n_heads=20))}
@@ -5752,7 +5885,7 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
 
     params, cfg = tiny_real.load_tiny_llm("cuda")
     ecfg = LLMEngineConfig(batch_slots=4, prompt_buckets=(128,), max_total_tokens=448,
-                           max_new_tokens=64, dtype=torch.bfloat16)
+                           max_new_tokens=64, dtype=torch.float32)
     eng = LLMEngine(params, cfg, ecfg, device="cuda")
     with torch.no_grad():
         out["llm_decode_dispatch"] = device_launches(torch, eng._step)
@@ -5768,9 +5901,9 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
                 torch, lambda: wsp.encode(stt_params, cfg, mel))
         out["encoder_layers"] = cfg.encoder_layers
     emit("device_launches", **out)
-    check(out["fused_attention"] == 1,
-          f"fused_attention ran {out['fused_attention']} kernels and copies "
-          f"on the card, want the attention kernel alone")
+    for name in ("fused_attention", "fused_attention_fp32"):
+        check(out[name] == 1, f"{name} ran {out[name]} kernels and copies "
+                              f"on the card, want the attention kernel alone")
     for mode in step_calls or {}:
         n = out[f"fused_decode_step_{mode}"]
         check(n == 1, f"fused_decode_step ({mode}) ran {n} kernels and copies "
@@ -5868,16 +6001,17 @@ def main(argv=None) -> int:
         for name in names:
             ALONE_PHASES[name](torch, attn)
         return 0
-    kernels = [phase_attention(torch, attn)]
+    kernels = [phase_attention(torch, attn), phase_attention_fp32(torch, attn)]
     if args.only == "attention":
         phase_device_launches(torch, attn)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    row, bf16_step = phase_tts_step(torch, st5, ts)
-    kernels.append(row)
-    row, int8_step = phase_tts_step(torch, st5, ts, int8=True, bf16_ms=row["ms"])
-    kernels.append(row)
-    step_calls = {"bf16": bf16_step, "int8": int8_step}
+    step_calls, bf16_ms = {}, None
+    for int8, fp32 in ((False, False), (True, False), (False, True), (True, True)):
+        row, call = phase_tts_step(torch, st5, ts, int8=int8, fp32=fp32, bf16_ms=bf16_ms)
+        kernels.append(row)
+        step_calls[STEP_KEY[(int8, fp32)]] = call
+        bf16_ms = bf16_ms if bf16_ms is not None else row["ms"]
     if args.only == "kernels":
         phase_device_launches(torch, attn, step_calls)
         print(json.dumps({"kernels": kernels}), flush=True)
@@ -5885,29 +6019,27 @@ def main(argv=None) -> int:
     stt_launches, stt_params = phase_stt(torch, attn, args.profile)
     tts_launches = phase_tts(torch, ts, args.profile)
     wide_launches = tts_engine_wide(torch, ts)
-    check(ts.fused_decode_step.launches_int8 == 0,
-          "tts: a dense tree went through the int8 step kernel")
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
-    call_attn, call_bf16 = phase_rtp_call(torch, attn, ts)
-    sip_attn, sip_bf16, sip_reply = phase_sip_call(torch, attn, ts)
-    rem_attn, rem_bf16 = phase_remote_call(torch, attn, ts, sip_reply)
+    call_attn, call_fp32 = phase_rtp_call(torch, attn, ts)
+    sip_attn, sip_fp32, sip_reply = phase_sip_call(torch, attn, ts)
+    rem_full_attn, rem_attn, rem_fp32 = phase_remote_call(torch, attn, ts, sip_reply)
     dmn_attn, dmn_bf16 = phase_daemon(torch)
     phase_llm(torch)
     phase_llm_tiny(torch)
-    aia_attn, aia_bf16 = phase_aia_call(torch, attn, ts)
+    aia_attn, aia_fp32 = phase_aia_call(torch, attn, ts)
     daia_attn, daia_bf16 = phase_daemon_aia(torch)
     paced_bf16 = phase_paced_tts(torch)
-    ltt_attn, ltt_bf16 = phase_lt_bench_tiny(torch)
+    ltt_attn, ltt_fp32 = phase_lt_bench_tiny(torch)
     ramp_attn, ramp_bf16 = phase_lt_ramp(torch)
-    loop_attn, loop_bf16 = phase_loopback(torch)
+    loop_attn, loop_fp32 = phase_loopback(torch)
     ladder_attn = phase_stt_ladder(torch, attn, stt_params)
     sttb_attn = phase_sttbench(torch)
     ttsb_bf16 = phase_ttsbench(torch)
     probe_bf16 = phase_ttsprobe(torch)
     phase_llmbench(torch)
     par = phase_parallel(torch)
-    aiab_attn, aiab_bf16 = phase_aia_bench(torch)
-    echo_attn, echo_bf16 = phase_echo(torch)
+    aiab_attn, aiab_fp32 = phase_aia_bench(torch)
+    echo_attn, echo_fp32 = phase_echo(torch)
     prof_attn, prof_bf16 = phase_ramp_profile(torch)
     ckpt_attn, ckpt_bf16, ckpt_int8 = phase_ckpt_port(torch, attn)
     examples_bf16 = phase_examples(torch)
@@ -5917,30 +6049,42 @@ def main(argv=None) -> int:
     # (the daemons' calls and the LT benches' levels in their own
     # processes, apart from their warm-ups; the paced TTS and loopback
     # benches' whole runs in theirs; remote_call's kernel-1 launches in
-    # its peer)
-    by_path = {"stt": stt_launches, "turn": turn_attn, "rtp_call": call_attn,
-               "sip_call": sip_attn, "remote_call": rem_attn, "daemon": dmn_attn,
-               "aia_call": aia_attn,
-               "daemon_aia": daia_attn, "lt_bench_tiny": ltt_attn, "lt_ramp": ramp_attn,
-               "loopback": loop_attn, "stt_ladder": ladder_attn, "sttbench": sttb_attn,
-               "aia_bench": aiab_attn, "echo": echo_attn, "ramp_profile": prof_attn,
-               "ckpt_port": ckpt_attn, "train": train_attn,
-               **{f"parallel_{k}": v["stt"]["attention"] for k, v in par.items()}}
-    kernels[0]["launches"] = sum(by_path.values())
-    kernels[0]["launches_by_path"] = by_path
-    by_path = {"tts": tts_launches, "tts_40_slots": wide_launches, "turn": turn_bf16, "rtp_call": call_bf16,
-               "sip_call": sip_bf16, "remote_call": rem_bf16, "daemon": dmn_bf16,
-               "aia_call": aia_bf16,
-               "daemon_aia": daia_bf16, "paced_tts": paced_bf16, "lt_bench_tiny": ltt_bf16,
-               "lt_ramp": ramp_bf16, "loopback": loop_bf16, "ttsbench": ttsb_bf16,
-               "ttsprobe": probe_bf16, "aia_bench": aiab_bf16, "echo": echo_bf16,
-               "ramp_profile": prof_bf16, "ckpt_port": ckpt_bf16, "examples": examples_bf16,
-               **{f"parallel_{k}": v["tts"]["bf16_step"] for k, v in par.items()}}
-    kernels[1]["launches"] = sum(by_path.values())
-    kernels[1]["launches_by_path"] = by_path
-    by_path = {"turn": turn_int8, "ckpt_port_int8": ckpt_int8}
-    kernels[2]["launches"] = sum(by_path.values())
-    kernels[2]["launches_by_path"] = by_path
+    # its peer), and held to its modes: the full-width engines to the bf16
+    # ones, the tiny and tiny-real engines (and the trainers) to the fp32
+    # ones, as the reference runs them
+    by_mode = {
+        "encoder_attention": {
+            "stt": stt_launches, "turn": turn_attn, "remote_call_full": rem_full_attn,
+            "daemon": dmn_attn, "daemon_aia": daia_attn, "lt_ramp": ramp_attn,
+            "stt_ladder": ladder_attn, "sttbench": sttb_attn, "ramp_profile": prof_attn,
+            "ckpt_port": ckpt_attn},
+        "encoder_attention_fp32": {
+            "rtp_call": call_attn, "sip_call": sip_attn, "remote_call": rem_attn,
+            "aia_call": aia_attn, "lt_bench_tiny": ltt_attn, "loopback": loop_attn,
+            "aia_bench": aiab_attn, "echo": echo_attn, "train": train_attn,
+            **{f"parallel_{k}": v["stt"]["attention_fp32"] for k, v in par.items()}},
+        "tts_decode_step": {
+            "tts": tts_launches, "daemon": dmn_bf16, "daemon_aia": daia_bf16,
+            "paced_tts": paced_bf16, "lt_ramp": ramp_bf16, "ttsbench": ttsb_bf16,
+            "ttsprobe": probe_bf16, "ramp_profile": prof_bf16, "ckpt_port": ckpt_bf16,
+            "examples": examples_bf16},
+        "tts_decode_step_int8": {"turn": turn_int8, "ckpt_port_int8": ckpt_int8},
+        "tts_decode_step_fp32": {
+            "tts_40_slots": wide_launches, "rtp_call": call_fp32, "sip_call": sip_fp32,
+            "remote_call": rem_fp32, "aia_call": aia_fp32, "lt_bench_tiny": ltt_fp32,
+            "loopback": loop_fp32, "aia_bench": aiab_fp32, "echo": echo_fp32,
+            **{f"parallel_{k}": v["tts"]["fp32_step"] for k, v in par.items()}},
+        # no engine of the main path runs int8 weights over fp32 caches: the
+        # mode is held to its plain version above and has no path here
+        "tts_decode_step_int8_fp32": {},
+    }
+    check(turn_bf16 == 0, f"turn: the bf16 step kernel launched {turn_bf16} times")
+    for row in kernels:
+        by_path = by_mode[row["name"]]
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        check(not by_path or all(n > 0 for n in by_path.values()),
+              f"{row['name']}: a path of its mode launched it no time: {by_path}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

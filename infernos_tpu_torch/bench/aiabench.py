@@ -188,7 +188,7 @@ def main(argv=None) -> None:
 
             stt_actr = spawn(STTActor, tiny=False,
                              ecfg=STTEngineConfig(batch_slots=8, buckets_s=(8, 16),
-                                                  dtype=serving_dtype(dev)),
+                                                  dtype=serving_dtype(dev, tiny=False)),
                              device=dev, name="stt:aia-bench")
             stt_actr.ask_sync("start", timeout=1800)
         build_cluster(iconf, tiny=not args.full, bind_ip="127.0.0.1",

@@ -72,7 +72,9 @@ def main(argv=None) -> None:
             vocab_size=1024, hidden_size=256, num_layers=4, num_heads=8,
             num_kv_heads=4, head_dim=32, intermediate_size=512,
             max_positions=2048, eos_token_id=2)
-    dtype = serving_dtype(dev)
+    # both dims are bf16 on the reference's TPU (infernos_tpu/bench/llmbench.py);
+    # on the card the tiny dims are refused
+    dtype = serving_dtype(dev, tiny=False)
     if a.int8 and a.dims == "7b":
         params = qwen_int8_init(cfg, dev, dtype)
     else:

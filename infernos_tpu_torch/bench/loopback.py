@@ -15,7 +15,7 @@ checkpointing results per speaker across generations.  Here:
 
 Port of ``infernos_tpu/bench/loopback.py``.  ``LoopbackQA`` is the
 reference's, on the port's engines.  ``main`` serves the tiny-real pair
-through the port's loaders on the card in bf16 (on the CPU in fp32 when
+through the port's loaders in fp32, on the card (or on the CPU when
 ``INFERNOS_DEVICE=cpu`` asks for it); without a card, or without the
 vendored pair, it raises.  Its prompts come from the port's copy of the
 speech language's corpus (``audio/speechlang.py``).
@@ -229,7 +229,7 @@ def tiny_real_engines(device):
     sparams, scfg, stok, secfg = tiny_real.load_tiny_stt(device)
     tts = TTSEngine(t5, tcfg, voc, vcfg, TTSEngineConfig(
         batch_slots=4, max_text_tokens=48, max_steps=170,
-        stop_threshold=0.5, dtype=tiny_real.serving_dtype(device)),
+        stop_threshold=0.5, dtype=tiny_real.serving_dtype(device, tiny=True)),
         device=device)
     stt = STTEngine(sparams, scfg, secfg, detokenize=stok.detokenize,
                     device=device)

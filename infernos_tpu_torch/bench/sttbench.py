@@ -16,7 +16,8 @@ Port of ``infernos_tpu/bench/sttbench.py``.  What differs, and why:
   one the encoder attention kernel takes.
 - Weights are seeded random draws from a ``torch.Generator`` on the
   device, in the serving dtype (``models/tiny_real.serving_dtype``: bf16
-  on the card); the reference draws from ``jax.random``.
+  for ``--full`` on the card, fp32 otherwise); the reference draws from
+  ``jax.random``.
 - ``--slots``, ``--max-new`` and ``--n`` size the engine and the corpus
   (the reference's ``--full`` is 16 slots, 224 new tokens, 32 utterances,
   its defaults).  Random weights never emit EOS, so every utterance runs
@@ -98,7 +99,7 @@ def build_engine(device, full: bool, slots: Optional[int] = None,
     from ..models import whisper as wsp
     from ..models.tiny_real import serving_dtype
 
-    dtype = serving_dtype(device)
+    dtype = serving_dtype(device, tiny=not full)
     cfg = presets.WHISPER_LARGE_V3 if full else presets.WHISPER_TINY_TEST
     params = wsp.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                              device, dtype)

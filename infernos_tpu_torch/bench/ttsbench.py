@@ -14,7 +14,7 @@ Port of ``infernos_tpu/bench/ttsbench.py``.  What differs, and why:
 - The engine's weights come from a ``torch.Generator`` seeded with
   ``seed`` on the engine's device (the reference splits a ``jax.random``
   key); its dtype is the serving dtype (``models/tiny_real
-  .serving_dtype``: bf16 on the card, which runs the decoder-step kernel).
+  .serving_dtype``: bf16 for ``--full`` on the card, fp32 otherwise).
 - ``run_bench`` and ``main`` run on the card, or on the CPU when asked
   (``device="cpu"``, ``INFERNOS_DEVICE=cpu``); without a card they raise.
   On the card ``main`` takes ``--full`` only: the tiny dims are not ones
@@ -68,7 +68,7 @@ def build_engine(tiny: bool = True, seed: int = 42, max_frames: int = 128,
     from ..utils.platform import default_device
 
     dev = default_device(device)
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=tiny)
     cfg = presets.SPEECHT5_TINY if tiny else presets.SPEECHT5_FULL
     voc = presets.HIFIGAN_TINY if tiny else presets.HIFIGAN_FULL
     g = torch.Generator(device=dev).manual_seed(seed)

@@ -50,7 +50,7 @@ def build_engine(device, B: int, chunk_schedule, max_steps: int,
     from ..serving.tts_engine import TTSEngine, TTSEngineConfig
 
     cfg, voc = presets.SPEECHT5_FULL, presets.HIFIGAN_FULL
-    dtype = serving_dtype(device)
+    dtype = serving_dtype(device, tiny=False)
     params = zeros_init(lambda g, d, t: st5.init_params(cfg, g, d, t), device, dtype)
     voc_params = zeros_init(lambda g, d, t: hfg.init_params(voc, g, d, t), device, dtype)
     if int8:

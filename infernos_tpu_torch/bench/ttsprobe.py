@@ -41,7 +41,8 @@ def run_mode(B: int, ticks: int, frames: int, device=None, tiny: bool = False):
     from ..utils.platform import default_device
 
     dev = default_device(device)
-    dtype = serving_dtype(dev)
+    # both dims are bf16 on the reference's TPU (infernos_tpu/bench/ttsprobe.py)
+    dtype = serving_dtype(dev, tiny=False)
     cfg = presets.SPEECHT5_TINY if tiny else presets.SPEECHT5_FULL
     voc = presets.HIFIGAN_TINY if tiny else presets.HIFIGAN_FULL
     params = zeros_init(lambda g, d, t: st5.init_params(cfg, g, d, t), dev, dtype)

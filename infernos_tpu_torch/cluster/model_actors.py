@@ -17,10 +17,10 @@ Port of ``infernos_tpu/cluster/model_actors.py``.  What differs, and why:
 
 - ``device`` places the engine: the card unless the caller asks for the
   CPU (``utils.platform.default_device`` raises without one).
-- The serving dtype is :func:`~..models.tiny_real.serving_dtype`: bf16 on
-  the card (the kernels take bf16 only), fp32 on the CPU -- for tiny-real,
-  tiny random and full-dims starts alike.  The reference serves bf16 only
-  on a TPU.
+- The serving dtype is :func:`~..models.tiny_real.serving_dtype`, the
+  reference's rule: tiny random and tiny-real starts are fp32 on every
+  device, full-dims starts bf16 on the card (the reference's bf16 on a
+  TPU) and fp32 on the CPU.
 - Full-dims starts without weights zero-initialise, as the reference
   does, but allocate the zeros directly on the device in the serving
   dtype: the parameter shapes are traced with fake tensors first (no
@@ -145,7 +145,7 @@ class TTSActor(Actor):
                 f"checkpoint in {tiny_real.data_path('tiny_tts')}")
         cfg = presets.SPEECHT5_TINY if self.tiny else presets.SPEECHT5_FULL
         voc = presets.HIFIGAN_TINY if self.tiny else presets.HIFIGAN_FULL
-        dtype = serving_dtype(dev)
+        dtype = serving_dtype(dev, tiny=self.tiny)
         if self._params is not None:
             params = cast_floating(self._params, dtype)
         elif self.tiny:
@@ -205,7 +205,7 @@ class TTSActor(Actor):
         ecfg = self.ecfg or TTSEngineConfig(
             batch_slots=8, max_text_tokens=48, max_steps=170,
             stop_threshold=0.5,  # trained stop tokens actually fire
-            dtype=serving_dtype(dev),
+            dtype=serving_dtype(dev, tiny=True),
         )
         self.lang = lang
         self.tokenizer = tok
@@ -275,7 +275,7 @@ class STTActor(Actor):
                 "INFERNOS_MODEL_MODE=tiny-real but no trained tiny STT "
                 f"checkpoint in {tiny_real.data_path('tiny_stt')}")
         cfg = presets.WHISPER_TINY_TEST if self.tiny else presets.WHISPER_LARGE_V3
-        dtype = serving_dtype(dev)
+        dtype = serving_dtype(dev, tiny=self.tiny)
         # sot_prev: the reference leaves large-v3's 50362 in the tiny config,
         # outside its 128-token vocabulary (JAX clamps the read; torch
         # raises, which quarantined every request with context)
@@ -409,7 +409,7 @@ class LLMActor(Actor):
         # reference's 14B target (Cluster/InfernLLMWorker.py:64) fits one
         # 80 GB card too (15.2 GiB in int8, parallel/budget.py)
         cfg = presets.QWEN_TINY if self.tiny else presets.QWEN25_7B
-        dtype = serving_dtype(dev)
+        dtype = serving_dtype(dev, tiny=self.tiny)
         ecfg = self.ecfg or dataclasses.replace(
             LLM_TINY_ENGINE if self.tiny else LLM_FULL_ENGINE, dtype=dtype)
         if self._params is not None:
@@ -429,7 +429,7 @@ class LLMActor(Actor):
 
         params, cfg = tiny_real.load_tiny_llm(dev)
         ecfg = self.ecfg or dataclasses.replace(LLM_TINY_REAL_ENGINE,
-                                                dtype=serving_dtype(dev))
+                                                dtype=serving_dtype(dev, tiny=True))
         self._run_engine(params, cfg, ecfg, dev)
         log.info("LLMActor started (tiny-real trained attendant, device=%s)", dev)
 

@@ -49,7 +49,18 @@
 // and the output goes out in the same type; pos is the engine's int64 [B];
 // the encoder mask is bool [B, S] (false = -1e9 added, as the plain
 // version), or null; the 1/sqrt(Dh) attention scale is folded into the q
-// weights and biases; caches bf16 canonical [L, B, H, T, 64].
+// weights and biases; caches canonical [L, B, H, T, 64], bf16 or fp32.
+//
+// fp32-cache mode (the caches' dtype of the same Pallas kernel, which takes
+// self_dtype and cross_dtype from its caches: fp32 for the tiny and
+// tiny-real engines): step_kernel<WT, CT> with CT = float writes the new
+// self K/V row at pos in fp32 and reads every cache row in fp32; the
+// weights stay bf16 or int8 (the reference packs them in bf16 whatever the
+// params' dtype, tts_step.py:570), so the four entries below are the pairs
+// (bf16 | int8 weights) x (bf16 | fp32 caches) of one source.  Cache rows
+// go from memory to registers, not through shared memory, so the launch
+// plan is the same in every mode; at D 768, B 8, pos 256 the fp32 caches
+// add about 52 MB to the bytes of a step.
 //
 // int8-weight mode (the int8w branch of the same Pallas kernel,
 // tts_decode_step_int8 below): every big matrix is int8 codes with an fp32
@@ -206,11 +217,58 @@ __device__ __forceinline__ float finish(float s, int col, const float* __restric
 // new row; so an item waits for memory about once and not once a pass.
 // The rows loaded before the new row was written are patched from shared
 // memory where they are that row.
-constexpr int VPF = 8;  // V rows a lane loads ahead: keys < VPF * 32
+// CT is the caches' element type: bf16, or float in the fp32-cache mode.
+// A K row is DH * sizeof(CT) bytes (8 or 16 loads of 16 bytes a thread) and
+// a lane's 8 dims of a V row one or two such loads; the rows go from memory
+// to registers, never through shared memory, so the launch plan is the same
+// in both cache modes.
+template <typename CT>
+struct Chunk;  // 16 bytes of a cache row as floats, and back
+
+template <>
+struct Chunk<bf16> {
+  static constexpr int N = 8;    // values in 16 bytes
+  static constexpr int VPF = 8;  // V rows a lane loads ahead: keys < VPF * 32
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = __bfloat1622float2(p2[e]);
+      f[2 * e] = v.x;
+      f[2 * e + 1] = v.y;
+    }
+  }
+  // the chunk of a row stored as the fp32 values f (already bf16 values)
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+  static __device__ __forceinline__ bf16 store(float v) { return __float2bfloat16(v); }
+  static __device__ __forceinline__ float load(bf16 v) { return __bfloat162float(v); }
+};
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  static constexpr int VPF = 4;  // half as many rows as bf16, each twice the registers
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+  static __device__ __forceinline__ float store(float v) { return v; }
+  static __device__ __forceinline__ float load(float v) { return v; }
+};
+
 
 struct AttnSmem {
   float qs[DH];
-  float kn[DH];  // the new K and V rows as stored (bf16 values), self mode
+  float kn[DH];  // the new K and V rows as stored (cache values), self mode
   float vn[DH];
   float sc[MAXT];
   float sh[NWARP];
@@ -243,34 +301,38 @@ __device__ float block_max(float v, float* sh) {
   return m;
 }
 
-// 8 dims of a bf16 row, as 16 bytes, from the fp32 copy of a stored row
-__device__ __forceinline__ uint4 row16(const float* r) {
-  return make_uint4(pack2(r[0], r[1]), pack2(r[2], r[3]), pack2(r[4], r[5]), pack2(r[6], r[7]));
-}
-
+template <typename CT>
 __device__ void attn_item(const float* q, int q_stride, const float* knew,
-                          const float* vnew, int new_stride, bf16* Kc,
-                          bf16* Vc, const long long* pos,
+                          const float* vnew, int new_stride, CT* Kc,
+                          CT* Vc, const long long* pos,
                           const uint8_t* mask, int H, int T, float* out,
                           int b, int h, AttnSmem& sm) {
+  using C = Chunk<CT>;
+  constexpr int KC = DH / C::N;  // 16-byte loads of a K row
+  constexpr int VC = 8 / C::N;   // 16-byte loads of a lane's 8 dims of a V row
+  constexpr int VPF = C::VPF;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int sub = lane >> 3, d8 = (lane & 7) * 8;
   __syncthreads();  // the block's previous item is done with sm
   const size_t cbase = ((size_t)b * H + h) * T * DH;
-  bf16* Kb = Kc + cbase;
-  bf16* Vb = Vc + cbase;
+  CT* Kb = Kc + cbase;
+  CT* Vb = Vc + cbase;
 
-  uint4 kr[DH / 8];
+  uint4 kr[KC];
   if (tid < T) {
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c)
-      kr[c] = *reinterpret_cast<const uint4*>(Kb + (size_t)tid * DH + c * 8);
+    for (int c = 0; c < KC; ++c)
+      kr[c] = *reinterpret_cast<const uint4*>(Kb + (size_t)tid * DH + c * C::N);
   }
-  uint4 vr[VPF];
+  uint4 vr[VPF][VC];
 #pragma unroll
   for (int i = 0; i < VPF; ++i) {
     const int j = warp * 4 + sub + i * NWARP * 4;
-    if (j < T) vr[i] = *reinterpret_cast<const uint4*>(Vb + (size_t)j * DH + d8);
+    if (j < T) {
+#pragma unroll
+      for (int c = 0; c < VC; ++c)
+        vr[i][c] = *reinterpret_cast<const uint4*>(Vb + (size_t)j * DH + d8 + c * C::N);
+    }
   }
   const bool keep0 = mask == nullptr || tid >= T || mask[(size_t)b * T + tid];
   float qv = 0.f, kv = 0.f, vv = 0.f;
@@ -285,11 +347,11 @@ __device__ void attn_item(const float* q, int q_stride, const float* knew,
   if (tid < DH) {
     sm.qs[tid] = qv;
     if (pos != nullptr) {
-      const bf16 kb = __float2bfloat16(kv), vb = __float2bfloat16(vv);
+      const CT kb = C::store(kv), vb = C::store(vv);
       Kb[(size_t)last * DH + tid] = kb;
       Vb[(size_t)last * DH + tid] = vb;
-      sm.kn[tid] = __bfloat162float(kb);
-      sm.vn[tid] = __bfloat162float(vb);
+      sm.kn[tid] = C::load(kb);
+      sm.vn[tid] = C::load(vb);
     }
   }
   __syncthreads();  // q and the new row staged; the row written is visible
@@ -300,22 +362,19 @@ __device__ void attn_item(const float* q, int q_stride, const float* knew,
   for (int j = tid; j < nk; j += NT) {
     if (j != tid) {
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c)
-        kr[c] = *reinterpret_cast<const uint4*>(Kb + (size_t)j * DH + c * 8);
+      for (int c = 0; c < KC; ++c)
+        kr[c] = *reinterpret_cast<const uint4*>(Kb + (size_t)j * DH + c * C::N);
     } else if (j == patch) {
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c) kr[c] = row16(sm.kn + c * 8);
+      for (int c = 0; c < KC; ++c) kr[c] = C::pack(sm.kn + c * C::N);
     }
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&kr[c]);
+    for (int c = 0; c < KC; ++c) {
+      float f[C::N];
+      C::unpack(kr[c], f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(p2[e]);
-        s = fmaf(sm.qs[c * 8 + 2 * e], f.x, s);
-        s = fmaf(sm.qs[c * 8 + 2 * e + 1], f.y, s);
-      }
+      for (int e = 0; e < C::N; ++e) s = fmaf(sm.qs[c * C::N + e], f[e], s);
     }
     if (!(j == tid ? keep0 : mask == nullptr || mask[(size_t)b * T + j])) s += NEG_INF;
     sm.sc[j] = s;
@@ -333,23 +392,38 @@ __device__ void attn_item(const float* q, int q_stride, const float* knew,
   float o[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) o[e] = 0.f;
-  auto acc_row = [&](float p, const uint4& raw) {
-    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  // a lane's 8 dims of one V row, from VC loads of 16 bytes
+  auto acc_row = [&](float p, const uint4 (&raw)[VC]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(v2[e]);
-      o[2 * e] = fmaf(p, f.x, o[2 * e]);
-      o[2 * e + 1] = fmaf(p, f.y, o[2 * e + 1]);
+    for (int c = 0; c < VC; ++c) {
+      float f[C::N];
+      C::unpack(raw[c], f);
+#pragma unroll
+      for (int e = 0; e < C::N; ++e) o[c * C::N + e] = fmaf(p, f[e], o[c * C::N + e]);
     }
   };
 #pragma unroll
   for (int i = 0; i < VPF; ++i) {
     const int j = warp * 4 + sub + i * NWARP * 4;
-    if (j < nk) acc_row(sm.sc[j], j == patch ? row16(sm.vn + d8) : vr[i]);
+    if (j < nk) {
+      if (j == patch) {
+        uint4 pr[VC];
+#pragma unroll
+        for (int c = 0; c < VC; ++c) pr[c] = C::pack(sm.vn + d8 + c * C::N);
+        acc_row(sm.sc[j], pr);
+      } else {
+        acc_row(sm.sc[j], vr[i]);
+      }
+    }
   }
 #pragma unroll 4
-  for (int j = warp * 4 + sub + VPF * NWARP * 4; j < nk; j += NWARP * 4)
-    acc_row(sm.sc[j], *reinterpret_cast<const uint4*>(Vb + (size_t)j * DH + d8));
+  for (int j = warp * 4 + sub + VPF * NWARP * 4; j < nk; j += NWARP * 4) {
+    uint4 raw[VC];
+#pragma unroll
+    for (int c = 0; c < VC; ++c)
+      raw[c] = *reinterpret_cast<const uint4*>(Vb + (size_t)j * DH + d8 + c * C::N);
+    acc_row(sm.sc[j], raw);
+  }
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     o[e] += __shfl_xor_sync(0xffffffffu, o[e], 8);
@@ -450,10 +524,10 @@ struct Params {
   const float* bias[N_GEMMS];  // [L, N]
   const float* scale[N_GEMMS]; // [L, N] (int8) or null
   const float* ln[6];          // ln1g, ln1b, ln2g, ln2b, ln3g, ln3b [L, D]
-  bf16* self_k;
-  bf16* self_v;
-  bf16* cross_k;
-  bf16* cross_v;
+  void* self_k;  // the caches, CT of step_kernel<WT, CT>
+  void* self_v;
+  void* cross_k;
+  void* cross_v;
   float* hbuf;   // [2, B, D] residual, ping-pong
   float* y;      // [B, 3D] qkv or cross q
   float* a;      // [B, D] attention output
@@ -849,7 +923,7 @@ __device__ void gemm(const Params& p, Ctx& c, int gi, const XSrc& src, float* y,
   ++c.consumed;
 }
 
-template <typename WT>
+template <typename WT, typename CT>
 __global__ void __launch_bounds__(NT, 1) step_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int D = p.H * DH, B = p.B, H = p.H;
@@ -943,10 +1017,10 @@ __global__ void __launch_bounds__(NT, 1) step_kernel(const Params p) {
       const bool self = kind == 1;
       const size_t off = l * (self ? self_l : cross_l);
       for (int it = blockIdx.x; it < B * H; it += gridDim.x)
-        attn_item(p.y, self ? 3 * D : D, self ? p.y + D : nullptr,
-                  self ? p.y + 2 * D : nullptr, 3 * D, (self ? p.self_k : p.cross_k) + off,
-                  (self ? p.self_v : p.cross_v) + off, self ? p.pos : nullptr,
-                  self ? nullptr : p.mask, H, self ? p.T : p.S, p.a, it / H, it % H, as);
+        attn_item<CT>(p.y, self ? 3 * D : D, self ? p.y + D : nullptr, self ? p.y + 2 * D : nullptr,
+                      3 * D, static_cast<CT*>(self ? p.self_k : p.cross_k) + off,
+                      static_cast<CT*>(self ? p.self_v : p.cross_v) + off, self ? p.pos : nullptr,
+                      self ? nullptr : p.mask, H, self ? p.T : p.S, p.a, it / H, it % H, as);
 #endif
     }
     grid_sync<WT>(p, c);
@@ -977,7 +1051,7 @@ __global__ void __launch_bounds__(NT, 1) step_kernel(const Params p) {
 // plan: (G, splits) per GEMM in the order qkv, so, cq, co, w1, w2, then
 // nslot, slot_bytes, xs_stride, work_bytes, smem_bytes (ops/tts_step.py
 // step_plan); grid: blocks, all resident.
-template <typename WT>
+template <typename WT, typename CT>
 int launch(const void* const* ptrs, const int* dims, const int* plan, float eps, int grid,
            void* stream) {
   Params p{};
@@ -990,10 +1064,10 @@ int launch(const void* const* ptrs, const int* dims, const int* plan, float eps,
   for (int g = 0; g < N_GEMMS; ++g) p.bias[g] = static_cast<const float*>(ptrs[i++]);
   for (int g = 0; g < N_GEMMS; ++g) p.scale[g] = static_cast<const float*>(ptrs[i++]);
   for (int k = 0; k < 6; ++k) p.ln[k] = static_cast<const float*>(ptrs[i++]);
-  p.self_k = (bf16*)ptrs[i++];
-  p.self_v = (bf16*)ptrs[i++];
-  p.cross_k = (bf16*)ptrs[i++];
-  p.cross_v = (bf16*)ptrs[i++];
+  p.self_k = const_cast<void*>(ptrs[i++]);
+  p.self_v = const_cast<void*>(ptrs[i++]);
+  p.cross_k = const_cast<void*>(ptrs[i++]);
+  p.cross_v = const_cast<void*>(ptrs[i++]);
   p.hbuf = (float*)ptrs[i++];
   p.y = (float*)ptrs[i++];
   p.a = (float*)ptrs[i++];
@@ -1045,11 +1119,12 @@ int launch(const void* const* ptrs, const int* dims, const int* plan, float eps,
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(step_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(step_kernel<WT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<WT>, NT, smem_bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel<WT, CT>, NT,
+                                                      smem_bytes);
   if (e != cudaSuccess) return (int)e;
   if (grid < 1 || grid > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
 
@@ -1063,22 +1138,43 @@ int launch(const void* const* ptrs, const int* dims, const int* plan, float eps,
   attr[0].val.cooperative = 1;  // all blocks resident: the barrier's premise
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, step_kernel<WT>, p);
+  e = cudaLaunchKernelEx(&cfg, step_kernel<WT, CT>, p);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One decoder step through all L layers: one cooperative launch.
+namespace {
+// int8 weight codes need one fp32 scale per output channel and matrix
+bool have_scales(const void* const* ptrs) {
+  for (int g = 0; g < N_GEMMS; ++g)
+    if (!ptrs[16 + g]) return false;
+  return true;
+}
+}  // namespace
+
+// One decoder step through all L layers: one cooperative launch.  bf16
+// weights over bf16 caches.
 extern "C" int tts_decode_step(const void* const* ptrs, const int* dims, const int* plan,
                                float eps, int grid, void* stream) {
-  return launch<bf16>(ptrs, dims, plan, eps, grid, stream);
+  return launch<bf16, bf16>(ptrs, dims, plan, eps, grid, stream);
 }
 
 // int8 weight codes with one fp32 scale per output channel and matrix.
 extern "C" int tts_decode_step_int8(const void* const* ptrs, const int* dims, const int* plan,
                                     float eps, int grid, void* stream) {
-  for (int g = 0; g < N_GEMMS; ++g)
-    if (!ptrs[16 + g]) return (int)cudaErrorInvalidValue;
-  return launch<int8_t>(ptrs, dims, plan, eps, grid, stream);
+  if (!have_scales(ptrs)) return (int)cudaErrorInvalidValue;
+  return launch<int8_t, bf16>(ptrs, dims, plan, eps, grid, stream);
+}
+
+// The fp32-cache modes: bf16 weights, or int8 codes, over fp32 caches.
+extern "C" int tts_decode_step_fp32(const void* const* ptrs, const int* dims, const int* plan,
+                                    float eps, int grid, void* stream) {
+  return launch<bf16, float>(ptrs, dims, plan, eps, grid, stream);
+}
+
+extern "C" int tts_decode_step_int8_fp32(const void* const* ptrs, const int* dims,
+                                         const int* plan, float eps, int grid, void* stream) {
+  if (!have_scales(ptrs)) return (int)cudaErrorInvalidValue;
+  return launch<int8_t, float>(ptrs, dims, plan, eps, grid, stream);
 }

@@ -8,8 +8,9 @@ Run: python -m infernos_tpu_torch.examples.llm_test [n_sessions] [rounds] [--ful
 
 What differs, and why:
 
-- It runs on the card in bf16, or on the CPU in fp32 when
-  ``INFERNOS_DEVICE=cpu`` asks for it; without a card it raises.  The
+- It runs on the card, or on the CPU when ``INFERNOS_DEVICE=cpu`` asks
+  for it; without a card it raises.  The tiny dims are fp32 on every
+  device, ``--full`` bf16 on the card (``models/tiny_real.serving_dtype``).  The
   weights come from a ``torch.Generator`` seeded 0 (the reference's
   ``jax.random.PRNGKey(0)``); ``--full`` is Qwen2.5-14B's dims.
 - The port's engine queues a submit and joins it at its next step, so a
@@ -37,7 +38,7 @@ def main(n_sessions: int = 16, rounds: int = 3, tiny: bool = True,
     from ..utils.platform import default_device
 
     dev = default_device(device or os.environ.get("INFERNOS_DEVICE") or None)
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=tiny)
     cfg = presets.QWEN_TINY if tiny else presets.QWEN25_14B
     tok = ByteTokenizer()
     eng = LLMEngine(

@@ -54,7 +54,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     if dev.type == "cuda" and tiny:
         raise SystemExit("tts_stream: on the card it serves --full: the tiny dims "
                          "are not ones the decoder-step kernel takes")
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=tiny)
     cfg = presets.SPEECHT5_TINY if tiny else presets.SPEECHT5_FULL
     voc = presets.HIFIGAN_TINY if tiny else presets.HIFIGAN_FULL
     k1, k2 = torch.randint(2**62, (2,), generator=torch.Generator().manual_seed(42)).tolist()

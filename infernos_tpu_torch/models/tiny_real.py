@@ -12,12 +12,10 @@ The checkpoints are read by path from ``infernos_tpu/models/data/tiny_*``
 port's configs, tensors on ``default_device(device)`` and the port's
 tokenizers (``models/bpe.py``, ``models/spm.py``).
 
-Dtype: the reference serves tiny-real in fp32.  The port's kernels take
-bf16 only (the attention kernel refuses an fp32 q; the decoder-step kernel
-takes bf16 caches and bf16 or int8 weights), so on a CUDA device the
-parameters and the STT engine config are bf16, and on the CPU fp32
-(:func:`serving_dtype`); the tiny LLM follows the same rule.  This is a
-deliberate difference from the reference.
+Dtype: the reference's rule (:func:`serving_dtype`).  The tiny-real trio
+is served in fp32 on every device, as the reference serves it on a TPU:
+on the card its encoder runs the attention kernel's fp32 mode and its TTS
+the decoder-step kernel over fp32 caches.
 """
 
 from __future__ import annotations
@@ -52,8 +50,13 @@ def have_tiny_llm() -> bool:
     return os.path.exists(os.path.join(data_path("tiny_llm"), "params.npz"))
 
 
-def serving_dtype(device) -> torch.dtype:
-    """bf16 on a CUDA device (the kernels' dtype), fp32 elsewhere."""
+def serving_dtype(device, *, tiny: bool) -> torch.dtype:
+    """The reference's serving dtype (``infernos_tpu/cluster/model_actors.py``
+    ``_serving_dtype`` and its tiny starts): a tiny or tiny-real engine is
+    fp32 on every device; a full-width engine is bf16 on the card (the
+    reference's bf16 on a TPU) and fp32 elsewhere."""
+    if tiny:
+        return torch.float32
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
@@ -80,7 +83,7 @@ def load_tiny_stt(device=None):
     from .whisper import WhisperConfig
 
     dev = default_device(device)
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=True)
     d = data_path("tiny_stt")
     cfg = _load_cfg(d, WhisperConfig)
     params = load_params(os.path.join(d, "params.npz"), dev, dtype)
@@ -135,7 +138,7 @@ def load_tiny_tts(vocoder: str = None, device=None):
     from .spm import load_spm_model
 
     dev = default_device(device)
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=True)
     d = data_path("tiny_tts")
     cfg = _load_cfg(d, SpeechT5Config)
     params = load_params(os.path.join(d, "t5_params.npz"), dev, dtype)
@@ -165,5 +168,5 @@ def load_tiny_llm(device=None):
     dev = default_device(device)
     d = data_path("tiny_llm")
     cfg = _load_cfg(d, QwenConfig)
-    params = load_params(os.path.join(d, "params.npz"), dev, serving_dtype(dev))
+    params = load_params(os.path.join(d, "params.npz"), dev, serving_dtype(dev, tiny=True))
     return params, cfg

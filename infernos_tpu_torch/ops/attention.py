@@ -6,19 +6,26 @@ layout.  On a CUDA tensor it launches ``csrc/attention.cu`` (the port of
 it runs :func:`_plain_attention`, the math of the reference's
 ``_xla_attention``.  There is no fallback from the kernel to the plain path.
 
+Two modes, as the Pallas kernel takes the dtype of q: bf16 q, k, v go to
+``attn_fwd_bf16`` (``wgmma``, the full-width encoders), fp32 ones to
+``attn_fwd_fp32`` (full fp32 FFMAs, the tiny and tiny-real encoders and the
+trainers).  q, k and v of mixed dtypes raise; nothing is cast to reach a
+kernel.  Each mode counts its own launches (``fused_attention.launches``
+and ``.launches_fp32``).
+
 The kernel takes strides, so it reads each head's 64 columns out of the
 ``[B, S, D]`` projections and writes them into a ``[B, S, D]`` output: one
 launch per call and no other work on the card.
 
-The kernel is compute-bound at whisper-large-v3 width (see the source note
-in ``csrc/attention.cu``): 11.5 GFLOP per call, 32 calls per encode.
+Both modes are compute-bound at whisper-large-v3 width (see the source
+notes in ``csrc/attention.cu``): 11.5 GFLOP per call, 32 calls per encode.
 
 Reverse mode, as the reference's ``custom_vjp`` has it: the forward is the
 kernel and the backward recomputes the plain attention and differentiates
 it (:class:`KernelAttention`).  ``fused_attention`` on the card takes that
 route only when grad mode is on and an input requires grad, so serving
-saves nothing and launches exactly as before.  The kernel stays bf16 only:
-a trainer hands it bf16 projections (``tools/optim.py``).
+saves nothing and launches exactly as before.  A trainer's fp32
+projections reach the fp32 mode, as the reference trains in fp32.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from . import build
 NEG_INF = -1e9
 HEAD_DIM = 64  # the kernel's compile-time head dim
 _Strides = ctypes.c_longlong * 12  # (batch, head, row) of q, k, v and o
+_ENTRIES = {torch.bfloat16: "attn_fwd_bf16", torch.float32: "attn_fwd_fp32"}
 
 
 def _plain_attention(q, k, v, mask_add):
@@ -54,24 +62,27 @@ def _kernel_args(q, k, v, mask_add, n_heads):
     """Check what the kernel needs of its inputs (all but the device) and
     return ``(B, S, strides)``: element strides (batch, head, row) of q, k, v
     in turn.  A head is a block of 64 contiguous columns, so its stride is
-    ``HEAD_DIM``; rows and batches may lie anywhere 16-byte aligned."""
+    ``HEAD_DIM``; rows and batches may lie anywhere 16-byte aligned.  q, k
+    and v are all bf16 or all fp32."""
     B, S, D = q.shape
     if D != n_heads * HEAD_DIM:
         raise ValueError(f"attention kernel: head dim {D // max(n_heads, 1)} "
                          f"!= {HEAD_DIM} (width {D}, {n_heads} heads)")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention kernel: q, k, v shapes differ")
+    if q.dtype not in _ENTRIES:
+        raise ValueError(f"attention kernel: q must be bf16 or fp32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention kernel: q, k, v must share one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    per16 = 16 // q.element_size()  # values of one 16-byte copy
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel: {name} must be bf16, "
-                             f"got {t.dtype}")
         sb, sr, sc = t.stride()
         if sc != 1:
             raise ValueError(f"attention kernel: {name}'s last stride is "
                              f"{sc}, a head's row must be contiguous")
-        # 16-byte copies: 8 bf16 values
-        if t.data_ptr() % 16 or (S > 1 and sr % 8) or (B > 1 and sb % 8):
+        if t.data_ptr() % 16 or (S > 1 and sr % per16) or (B > 1 and sb % per16):
             raise ValueError(f"attention kernel: {name} is not 16-byte "
                              f"aligned (offset {t.data_ptr() % 16}, strides "
                              f"{t.stride()})")
@@ -85,9 +96,10 @@ def _kernel_args(q, k, v, mask_add, n_heads):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The library's C entry, built at first use, with its argument types."""
-    fn = build.load("attention").attn_fwd_bf16
+def _entry(dtype: torch.dtype):
+    """The library's C entry of ``dtype``'s mode, built at first use, with
+    its argument types."""
+    fn = getattr(build.load("attention"), _ENTRIES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -97,18 +109,20 @@ def _entry():
 def _kernel_attention(q, k, v, mask_add=None, *, n_heads: int = 1):
     """Launch the CUDA kernel on heads where they lie.
 
-    q, k, v ``[B, S, n_heads * 64]`` bf16, any 16-byte-aligned batch and row
-    strides; mask_add ``[B, S]`` fp32 additive (one row per batch element)
-    or None.  Returns a contiguous ``[B, S, n_heads * 64]``.  With
+    q, k, v ``[B, S, n_heads * 64]``, all bf16 or all fp32, any
+    16-byte-aligned batch and row strides; mask_add ``[B, S]`` fp32
+    additive (one row per batch element) or None.  Returns a contiguous
+    ``[B, S, n_heads * 64]``.  With
     ``n_heads=1`` this is :func:`_plain_attention`'s ``[BH, S, Dh]``
-    contract.  Raises on anything the kernel does not take.
+    contract.  Raises on anything the kernel does not take.  The output
+    is in the inputs' dtype.
     """
     B, S, strides = _kernel_args(q, k, v, mask_add, n_heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"attention kernel: {name} must be a CUDA "
                              f"tensor on one device, got {t.device}")
-    fn = _entry()
+    fn = _entry(q.dtype)
     out = torch.empty((B, S, n_heads * HEAD_DIM), dtype=q.dtype,
                       device=q.device)
     strides += [out.stride(0), HEAD_DIM, out.stride(1)]
@@ -117,8 +131,11 @@ def _kernel_attention(q, k, v, mask_add=None, *, n_heads: int = 1):
             None if mask_add is None else mask_add.data_ptr(),
             out.data_ptr(), _Strides(*strides), B, n_heads, S,
             float(HEAD_DIM ** -0.5), stream)
-    build.check(rc, "attn_fwd_bf16")
-    fused_attention.launches += 1
+    build.check(rc, _ENTRIES[q.dtype])
+    if q.dtype == torch.float32:
+        fused_attention.launches_fp32 += 1
+    else:
+        fused_attention.launches += 1
     return out
 
 
@@ -193,4 +210,5 @@ def fused_attention(q, k, v, *, n_heads: int,
     return by_heads(_plain_attention, q, k, v, n_heads=n_heads, mask=mask)
 
 
-fused_attention.launches = 0
+fused_attention.launches = 0  # bf16 kernel launches
+fused_attention.launches_fp32 = 0  # fp32 kernel launches

@@ -24,8 +24,16 @@ fp32 scale per output channel, and the step computes
 ``(h @ codes) * scale + bias`` for every product: on the card through
 ``tts_decode_step_int8`` of the same source, on the CPU through the plain
 version.  There is no route from a quantized tree to the bf16 kernels by
-dequantizing.  Each mode counts its own launches
-(``fused_decode_step.launches`` and ``.launches_int8``).
+dequantizing.
+
+Two cache modes, as the Pallas kernel takes its cache dtypes from the
+caches: bf16 caches (the full-width engines on the card), or fp32 caches
+(the tiny and tiny-real engines), whose K/V rows the kernel writes and
+reads in fp32.  The weights stay bf16 or int8 codes in both, as the
+reference's ``wdt`` packs them (:func:`pack_fused_weights`).  Each of the
+four modes counts its own launches: ``fused_decode_step.launches`` (bf16
+weights, bf16 caches), ``.launches_int8``, ``.launches_fp32`` (bf16
+weights, fp32 caches) and ``.launches_int8_fp32``.
 
 One launch takes at most ``MAX_B`` slots.  A step of more slots runs the
 kernel once per group of at most ``MAX_B`` slots, in slot order, on the
@@ -121,7 +129,10 @@ def pack_fused_weights(params, cfg, dtype: Optional[torch.dtype] = None) -> Pack
     Dense tree: big matrices ``[L, in, out]`` in ``dtype`` (default: the
     params' own), with 1/sqrt(Dh) folded into the self q third of ``wqkv``
     and into the cross-q weights and biases; biases and LayerNorm parameters
-    fp32.
+    fp32.  Params on a CUDA device pack their matrices in bf16 whatever
+    ``dtype`` or their own dtype is: the kernel's weights, as the
+    reference packs them (``wdt=jnp.bfloat16``).  On the CPU the plain
+    step keeps ``dtype``, as the reference's CPU path never rounds them.
 
     Quantized tree (``w_q`` in ``dec_layers.self_attn.q``): the same keys
     with the int8 codes untouched (``dtype`` does not apply to them), plus
@@ -138,8 +149,9 @@ def pack_fused_weights(params, cfg, dtype: Optional[torch.dtype] = None) -> Pack
     D = sa["q"]["b"].shape[1]
     scale = (D // cfg.decoder_attention_heads) ** -0.5
     int8w = "w_q" in sa["q"]
+    on_card = sa["q"]["b"].device.type == "cuda"
     if not int8w:
-        dtype = dtype or sa["q"]["w"].dtype
+        dtype = torch.bfloat16 if on_card else dtype or sa["q"]["w"].dtype
 
     def w(node, s=1.0):
         if int8w:  # codes untouched: ``s`` goes into the node's scales below
@@ -170,7 +182,7 @@ def pack_fused_weights(params, cfg, dtype: Optional[torch.dtype] = None) -> Pack
             "sco": f(ca["o"]["scale"]), "s1": f(ffn["in"]["scale"]),
             "s2": f(ffn["out"]["scale"]),
         })
-    if sa["q"]["b"].device.type == "cuda":
+    if on_card:
         fw.update({n: pack_panels(fw[n]) for n in _GEMMS})
     return fw
 
@@ -364,11 +376,16 @@ def _check_step_args(fw: PackedWeights, x, cache, pos, enc_mask):
     the CPU tests reach every refusal); returns ``(L, B, H, T, S, D, F)``."""
     int8w = is_int8(fw)
     wdt = torch.int8 if int8w else torch.bfloat16
-    for name in ("self_k", "self_v", "cross_k", "cross_v"):
+    dts = [getattr(cache, n).dtype for n in _CACHES]
+    if len(set(dts)) != 1 or dts[0] not in (torch.bfloat16, torch.float32):
+        raise ValueError("tts_step kernel: cache.self_k, cache.self_v, cache.cross_k "
+                         "and cache.cross_v must share one dtype, bf16 or fp32; got "
+                         + ", ".join(str(d) for d in dts))
+    for name in _CACHES:
         t = getattr(cache, name)
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.dim() != 5:
+        if not t.is_contiguous() or t.dim() != 5:
             raise ValueError(f"tts_step kernel: cache.{name} must be a "
-                             "contiguous bf16 [L, B, H, T, 64] tensor")
+                             "contiguous [L, B, H, T, 64] tensor")
     for name in _GEMMS + _BIASES + _LNS + (_SCALES if int8w else ()):
         t = fw[name]
         want = wdt if name in _GEMMS else torch.float32
@@ -408,6 +425,12 @@ def _check_step_args(fw: PackedWeights, x, cache, pos, enc_mask):
                          f"[{B}, {S}] tensor or None")
     return Lyr, B, H, T, S, D, F
 
+
+# (int8 weights, the caches' dtype) -> the C entry and its launch counter
+_MODES = {(False, torch.bfloat16): ("tts_decode_step", "launches"),
+          (True, torch.bfloat16): ("tts_decode_step_int8", "launches_int8"),
+          (False, torch.float32): ("tts_decode_step_fp32", "launches_fp32"),
+          (True, torch.float32): ("tts_decode_step_int8_fp32", "launches_int8_fp32")}
 
 _scratch: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
@@ -474,7 +497,7 @@ def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
     ints = plan_ints(plan)
     rc = fn(c_ptrs, dims, (ctypes.c_int * len(ints))(*ints),
             float(cfg.layer_norm_eps), plan["grid"], stream)
-    build.check(rc, "tts_decode_step_int8" if int8w else "tts_decode_step")
+    build.check(rc, fn.__name__)
     return out
 
 
@@ -500,7 +523,8 @@ def run_groups(step_group, x, cache, pos, enc_mask=None):
 def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
     """The step kernel on every slot; same contract as
     :func:`_plain_decode_step`.  int8 codes go to ``tts_decode_step_int8``
-    with their scales, bf16 weights to ``tts_decode_step``; anything else
+    with their scales, bf16 weights to ``tts_decode_step``, each with the
+    suffix ``_fp32`` over fp32 caches (:data:`_MODES`); anything else
     raises.  x is read as given and the hidden state comes back in x's
     dtype; pos is read as int64 and the bool mask as it is.  Each launch is
     cooperative, one block per SM, and takes a group of at most ``MAX_B``
@@ -515,16 +539,13 @@ def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
             or any(fw[n].device != dev for n in _GEMMS):
         raise ValueError("tts_step kernel: tensors must be on one CUDA device")
     int8w = is_int8(fw)
-    lib = build.load("tts_step")
-    fn = lib.tts_decode_step_int8 if int8w else lib.tts_decode_step
+    entry, counter = _MODES[(int8w, cache.self_k.dtype)]
+    fn = getattr(build.load("tts_step"), entry)
 
     def launch_group(xg, group, pg, mg, out):
         _launch(fn, fw, cfg, xg, group, pg, mg,
                 step_plan(xg.shape[0], D, F, int8w, _sm_count(dev)), out=out)
-        if int8w:
-            fused_decode_step.launches_int8 += 1
-        else:
-            fused_decode_step.launches += 1
+        setattr(fused_decode_step, counter, getattr(fused_decode_step, counter) + 1)
 
     return run_groups(launch_group, x, cache, pos, enc_mask)
 
@@ -536,8 +557,9 @@ def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
     caches ``[L, B, H, T, Dh]`` (self K/V updated in place at ``pos``),
     enc_mask ``[B, S]`` bool or None.  Returns the ``[B, 1, D]`` hidden.
 
-    On the card x must be fp32 or bf16, pos int64 and enc_mask bool, as the
-    engine gives them, with T and S at most 4096; anything else raises
+    On the card x must be fp32 or bf16, pos int64, enc_mask bool and the
+    four caches all bf16 or all fp32, as the engine gives them, with T and
+    S at most 4096; anything else raises
     ValueError.  More than ``MAX_B`` slots take one launch per group of at
     most ``MAX_B`` (:func:`launches_per_step`).  The CPU path is more lenient (any integer pos,
     a mask that ``.bool()`` reads); callers that may run on either device
@@ -554,5 +576,8 @@ def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
     return _plain_decode_step(fw, cfg, x, cache, pos, enc_mask)
 
 
-fused_decode_step.launches = 0  # bf16 kernel launches (one per slot group of a step)
-fused_decode_step.launches_int8 = 0  # int8 kernel launches (one per slot group of a step)
+# kernel launches by mode, one per slot group of a step
+fused_decode_step.launches = 0  # bf16 weights, bf16 caches
+fused_decode_step.launches_int8 = 0  # int8 weights, bf16 caches
+fused_decode_step.launches_fp32 = 0  # bf16 weights, fp32 caches
+fused_decode_step.launches_int8_fp32 = 0  # int8 weights, fp32 caches

@@ -22,8 +22,9 @@ ranks the ranks share the card over gloo, and it says so.
 
 The kernels take head dim 64 only, so on the card the TTS and STT widths
 are the reference dry run's head counts times 64 (TTS hidden 256, FFN 512;
-Whisper width 128, FFN 256) and the engines run in bf16; on the CPU they
-are the reference's own dims (head dim 16) in fp32.
+Whisper width 128, FFN 256); on the CPU they are the reference's own dims
+(head dim 16).  fp32 on every device, as the reference's dry run: on the
+card the kernels' fp32 modes.
 
     python -m infernos_tpu_torch.parallel.dryrun --ranks 2 [--device cpu]
 """
@@ -37,6 +38,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..ops import launch_counts, reset_launch_counts
 from ..utils.platform import DeviceLike, default_device
 
 
@@ -99,23 +101,21 @@ def entry(device: DeviceLike = None):
     from ..ops.tts_step import fused_decode_step, pack_fused_weights
 
     dev = default_device(device)
-    kernel = dev.type == "cuda"
-    dtype = torch.bfloat16 if kernel else torch.float32
-    cfg, _ = tiny_cfgs(kernel)
+    cfg, _ = tiny_cfgs(dev.type == "cuda")
     B, S, C = 4, 16, 8
     g = torch.Generator(device=dev).manual_seed(0)
-    params = st5.init_params(cfg, g, dev, dtype)
-    cache = st5.init_cache(cfg, B, 64, S, dev, dtype)
-    enc = torch.randn((B, S, cfg.hidden_size), generator=g, device=dev).to(dtype)
+    params = st5.init_params(cfg, g, dev)
+    cache = st5.init_cache(cfg, B, 64, S, dev)
+    enc = torch.randn((B, S, cfg.hidden_size), generator=g, device=dev)
     cache = st5.fill_cross_kv(params, cfg, cache, enc)
 
     def forward(params, cache, prev_mel, spk, pos, generator):
-        packed = pack_fused_weights(params, cfg, dtype)
+        packed = pack_fused_weights(params, cfg)
         mels = []
         for _ in range(C // cfg.reduction_factor):
             x = st5.decoder_prenet(params, cfg, prev_mel, spk, step_offset=pos,
                                    generator=generator)
-            h = fused_decode_step(params, cfg, x.to(dtype), cache, pos, packed=packed)
+            h = fused_decode_step(params, cfg, x, cache, pos, packed=packed)
             mel, _ = st5.feat_and_prob(params, cfg, h)
             prev_mel, pos = mel[:, -1:, :], pos + 1
             mels.append(mel)
@@ -125,32 +125,17 @@ def entry(device: DeviceLike = None):
     example_args = (
         params,
         cache,
-        torch.zeros((B, 1, cfg.num_mel_bins), dtype=dtype, device=dev),
-        torch.randn((B, cfg.speaker_embedding_dim), generator=g, device=dev).to(dtype),
+        torch.zeros((B, 1, cfg.num_mel_bins), device=dev),
+        torch.randn((B, cfg.speaker_embedding_dim), generator=g, device=dev),
         torch.zeros(B, dtype=torch.long, device=dev),
         torch.Generator(device=dev).manual_seed(3),
     )
     return forward, example_args
 
 
-def _launches() -> Dict[str, int]:
-    from ..ops import attention as attn
-    from ..ops import tts_step as ts
-
-    return {"attention": attn.fused_attention.launches,
-            "bf16_step": ts.fused_decode_step.launches,
-            "int8_step": ts.fused_decode_step.launches_int8}
 
 
-def _zero_launches() -> None:
-    from ..ops import attention as attn
-    from ..ops import tts_step as ts
-
-    attn.fused_attention.launches = 0
-    ts.fused_decode_step.launches = ts.fused_decode_step.launches_int8 = 0
-
-
-def _tts_part(mesh, kernel: bool, dtype) -> List:
+def _tts_part(mesh, kernel: bool) -> List:
     from ..models import hifigan as hfg
     from ..models import speecht5 as st5
     from ..serving.tts_engine import TTSEngine, TTSEngineConfig
@@ -159,11 +144,11 @@ def _tts_part(mesh, kernel: bool, dtype) -> List:
     n, r = mesh.size, mesh.rank
     cfg, voc = tiny_cfgs(kernel)
     g = torch.Generator(device=mesh.device).manual_seed(0)
-    params = replicate(st5.init_params(cfg, g, mesh.device, dtype), mesh)
-    voc_params = replicate(hfg.init_params(voc, g, mesh.device, dtype), mesh)
+    params = replicate(st5.init_params(cfg, g, mesh.device), mesh)
+    voc_params = replicate(hfg.init_params(voc, g, mesh.device), mesh)
     lo, hi = block(n, n, r)  # one global slot per rank, as the reference
     ecfg = TTSEngineConfig(batch_slots=hi - lo, max_text_tokens=16, max_steps=32,
-                           pre_frames=4, chunk_schedule=(8,), min_steps=2, dtype=dtype)
+                           pre_frames=4, chunk_schedule=(8,), min_steps=2)
     eng = TTSEngine(params, cfg, voc_params, voc, ecfg, device=mesh.device)
     got = []
     rng = np.random.default_rng(0)
@@ -201,7 +186,7 @@ def _llm_part(mesh_device: DeviceLike) -> Dict[str, Any]:
             "kv_heads": qcfg.num_kv_heads}
 
 
-def _stt_part(mesh, kernel: bool, dtype) -> List:
+def _stt_part(mesh, kernel: bool) -> List:
     from ..models import whisper as wsp
     from ..serving.stt_engine import STTEngine, STTEngineConfig, STTRequest
     from .mesh import block, replicate
@@ -211,11 +196,11 @@ def _stt_part(mesh, kernel: bool, dtype) -> List:
     lo, hi = block(n, n, r)
     g = torch.Generator(device=mesh.device).manual_seed(5)
     seng = STTEngine(
-        replicate(wsp.init_params(wcfg, g, mesh.device, dtype), mesh), wcfg,
+        replicate(wsp.init_params(wcfg, g, mesh.device), mesh), wcfg,
         STTEngineConfig(batch_slots=hi - lo, buckets_s=(1,), max_new_tokens=4,
                         max_prompt_tokens=8, lang_tokens={"en": 10},
                         task_transcribe=12, task_translate=13, no_timestamps=14,
-                        no_speech=4, dtype=dtype),
+                        no_speech=4),
         device=mesh.device)
     sres = []
     rng = np.random.default_rng(1)
@@ -239,15 +224,14 @@ def _dryrun_rank(device_type: str) -> Dict[str, Any]:
     dev = "cpu" if device_type == "cpu" else None
     mesh = make_mesh(axes=("dp",), device=dev)
     kernel = mesh.device.type == "cuda"
-    dtype = torch.bfloat16 if kernel else torch.float32
-    _zero_launches()
+    reset_launch_counts()
     out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
-           "tts": _tts_part(mesh, kernel, dtype)}
-    tts_launches = _launches()
+           "tts": _tts_part(mesh, kernel)}
+    tts_launches = launch_counts()
     out["llm"] = _llm_part(dev)
-    _zero_launches()
-    out["stt"] = _stt_part(mesh, kernel, dtype)
-    out["launches"] = {"tts": tts_launches, "stt": _launches()}
+    reset_launch_counts()
+    out["stt"] = _stt_part(mesh, kernel)
+    out["launches"] = {"tts": tts_launches, "stt": launch_counts()}
     out["modules"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "infernos_tpu"))
     return out

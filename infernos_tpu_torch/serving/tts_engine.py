@@ -157,7 +157,9 @@ class TTSEngine:
             self._hthread.start()
         self.sessions: List[Optional[_Session]] = [None] * ecfg.batch_slots
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        # weights packed ONCE: packing per step would re-copy every weight
+        # weights packed ONCE: packing per step would re-copy every weight;
+        # bf16 on the card whatever ecfg.dtype (the reference's wdt), the
+        # engine's dtype on the CPU
         self.packed = pack_fused_weights(params, cfg, ecfg.dtype)
         self.tick_ms: List[float] = []  # host ms between dispatches
         self.tick_frames: List[int] = []  # mel frames of each dispatched tick

@@ -95,11 +95,11 @@ def main(argv=None) -> int:
         from ..serving.tts_engine import TTSEngine, TTSEngineConfig
 
         tparams, tcfg, vparams, vcfg, ttok, table = tiny_real.load_tiny_tts(device=device)
-        # the engine runs in the loaded trees' dtype (bf16 on the card)
+        # the engine runs in the loaded trees' dtype (fp32, the tiny rule)
         teng = TTSEngine(tparams, tcfg, vparams, vcfg,
                          TTSEngineConfig(batch_slots=4, max_text_tokens=48,
                                          max_steps=170, stop_threshold=0.5,
-                                         dtype=tiny_real.serving_dtype(device)),
+                                         dtype=tiny_real.serving_dtype(device, tiny=True)),
                          device=device)
         texts = texts_by_side["pt"][:6]
         hyps = [transcribe(eng, tok, [say(teng, ttok, t, table[0])], "pt")[0]

@@ -7,19 +7,15 @@ learning rate), and the schedules follow optax's step semantics: the first
 update reads the schedule at count 0, so a warmup from 0.0 leaves the
 parameters of the first step unchanged, as in the reference.
 
-Precision on the card: the master parameters and the AdamW moments are
-fp32; the forward runs on a bf16 copy of the parameters under
-``torch.autocast("cuda", torch.bfloat16)`` (:func:`forward_params`,
-:func:`autocast`), so the encoder's q/k/v projections reach the bf16-only
-attention kernel in bf16.  Autocast alone would not do that: a biased
-projection adds an fp32 bias to the bf16 product, and the sum is fp32.
-The gradients of the bf16 copy flow back to the fp32 masters through the
-cast.  On the CPU everything is fp32, as in the reference.
+Precision: fp32 on every device, as the reference trains.  The forward
+reads the fp32 parameters themselves, so on the card the encoder's fp32
+q/k/v projections reach the attention kernel's fp32 mode; the card's
+matmuls and convolutions run in full fp32, not TF32
+(``utils/platform.default_device``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 import time
@@ -60,21 +56,6 @@ def map_tree(fn, tree: Any) -> Any:
 def trainable(tree: Any) -> Any:
     """An fp32 copy of a tree whose floating leaves require grad."""
     return map_tree(lambda t: t.detach().float().clone().requires_grad_(), tree)
-
-
-def forward_params(params: Any, device) -> Any:
-    """The tree the forward reads: on a CUDA device a bf16 copy made by a
-    differentiable cast (the kernels' dtype), else the fp32 masters."""
-    if torch.device(device).type != "cuda":
-        return params
-    return map_tree(lambda t: t.to(torch.bfloat16), params)
-
-
-def autocast(device):
-    """bf16 autocast on a CUDA device, nothing elsewhere."""
-    if torch.device(device).type == "cuda":
-        return torch.autocast("cuda", torch.bfloat16)
-    return contextlib.nullcontext()
 
 
 # -- schedules ------------------------------------------------------------------
@@ -158,12 +139,11 @@ class AdamW:
 
 
 def train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Any]], params: Any,
-               opt: AdamW, device, *args) -> Tuple[torch.Tensor, Any]:
-    """One update: ``loss_fn(forward_params(params), *args) -> (loss, aux)``
-    under :func:`autocast`, gradients of the fp32 masters, then AdamW.
-    Returns the loss (fp32, detached) and ``aux``."""
-    with autocast(device):
-        loss, aux = loss_fn(forward_params(params, device), *args)
+               opt: AdamW, *args) -> Tuple[torch.Tensor, Any]:
+    """One update: ``loss_fn(params, *args) -> (loss, aux)``, gradients of
+    the fp32 parameters, then AdamW.  Returns the loss (fp32, detached) and
+    ``aux``."""
+    loss, aux = loss_fn(params, *args)
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     opt.step(grads)
     return loss.detach().float(), aux
@@ -174,7 +154,7 @@ def to_device(batch, device) -> tuple:
     return tuple(torch.from_numpy(np.asarray(x)).to(device) for x in batch)
 
 
-def fit(loss_fn, params: Any, opt: AdamW, device, cfg, batches: Callable[[int], tuple],
+def fit(loss_fn, params: Any, opt: AdamW, cfg, batches: Callable[[int], tuple],
         steps: int, *, log_every: int = 100,
         report: Optional[Callable[[int, float, Any], str]] = None,
         on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
@@ -186,7 +166,7 @@ def fit(loss_fn, params: Any, opt: AdamW, device, cfg, batches: Callable[[int], 
     losses: List[float] = []
     t0 = time.time()
     for step in range(steps):
-        loss, aux = train_step(loss_fn, params, opt, device, cfg, *batches(step))
+        loss, aux = train_step(loss_fn, params, opt, cfg, *batches(step))
         losses.append(float(loss))
         if log_every and (step % log_every == 0 or step == steps - 1):
             line = (report(step, losses[-1], aux) if report

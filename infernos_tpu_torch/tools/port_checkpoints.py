@@ -141,9 +141,9 @@ def dry_run(out: str) -> None:
     load -> tokenize -> infer -> detokenize path.
 
     The reference rehearses a Whisper of width 32 with 4 heads (head dim 8)
-    in fp32.  The encoder attention kernel takes head dim 64 in bf16 only,
-    so this Whisper is width 128 with 2 heads, served in bf16 on the card
-    (fp32 on the CPU)."""
+    in fp32.  The encoder attention kernel takes head dim 64, so this
+    Whisper is width 128 with 2 heads; fp32 on every device, as the
+    reference rehearses it (its fp32 kernel mode on the card)."""
     import numpy as np
     import torch
 
@@ -156,7 +156,7 @@ def dry_run(out: str) -> None:
     from ..utils.platform import default_device
 
     dev = default_device(os.environ.get("INFERNOS_DEVICE") or None)
-    dtype = serving_dtype(dev)
+    dtype = serving_dtype(dev, tiny=True)
 
     def gen():
         return torch.Generator().manual_seed(0)

@@ -6,8 +6,7 @@ Port of ``tools/train_amendnet.py``: clean synthetic speech
 at chunk seams -- a gain step and a DC offset per chunk, boundary clicks --
 and the gain-mask net learns to undo them from the clean mel; the same
 batches for the same numpy seed, an L1 loss and AdamW at a constant rate.
-On the card the forward runs in bf16 over fp32 masters
-(``tools/optim.py``).
+fp32 on every device, as the reference trains (``tools/optim.py``).
 
     python -m infernos_tpu_torch.tools.train_amendnet [--steps 1200]
         [--batch 64] [--lr 3e-4] [--seed 42] [--out DIR] [--device cpu]
@@ -113,7 +112,7 @@ def make_optimizer(params, lr: float) -> optim.AdamW:
 
 def train(params, cfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
           steps: int, device, log_every: int = 100) -> List[float]:
-    return optim.fit(loss_fn, params, opt, device, cfg,
+    return optim.fit(loss_fn, params, opt, cfg,
                      lambda step: optim.to_device(next_batch(step), device), steps,
                      log_every=log_every,
                      report=lambda step, loss, _: f"step {step:5d} L1 {loss:.4f}")
@@ -129,9 +128,7 @@ def save(out: str, params) -> str:
 def held_out(params, cfg, seed: int, device) -> tuple:
     """L1 of the amended chunk and of the corrupted one against the clean."""
     mel, dirty, clean = make_batch(np.random.default_rng(seed + 1), 64, cfg)
-    with optim.autocast(device):
-        out = amd.apply(optim.forward_params(params, device), cfg,
-                        *optim.to_device((mel, dirty), device)).float().cpu().numpy()
+    out = amd.apply(params, cfg, *optim.to_device((mel, dirty), device)).float().cpu().numpy()
     fs, pre, ck = cfg.frame_size, cfg.pre_frames, cfg.chunk_frames
     ident = dirty[:, pre * fs : (pre + ck) * fs]
     l1_net = float(np.abs(out - clean).mean())

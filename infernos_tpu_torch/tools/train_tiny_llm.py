@@ -6,8 +6,8 @@ over the synthetic spoken language's words, the same dialogues and
 serving-shaped examples (the ChatML prompt of the context so far, then the
 reply's bytes and eos, loss on the reply and eos only), the same batches
 for the same numpy seed, the same config and the same AdamW with a linear
-warmup and cosine decay.  Qwen trains through ``qwen.prefill``; on the card
-the forward runs in bf16 over fp32 masters (``tools/optim.py``).
+warmup and cosine decay.  Qwen trains through ``qwen.prefill``, in fp32 on
+every device, as the reference trains (``tools/optim.py``).
 
     python -m infernos_tpu_torch.tools.train_tiny_llm [--steps 6000]
         [--batch 32] [--lr 3e-4] [--eval-only] [--seed 0] [--out DIR]
@@ -203,7 +203,7 @@ def make_optimizer(params, lr: float, steps: int) -> optim.AdamW:
 def train(params, cfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
           steps: int, device, log_every: int = 100,
           on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
-    return optim.fit(loss_fn, params, opt, device, cfg,
+    return optim.fit(loss_fn, params, opt, cfg,
                      lambda step: optim.to_device(next_batch(step), device), steps,
                      log_every=log_every, on_step=on_step)
 
@@ -230,13 +230,10 @@ def greedy_replies(params, cfg, tok, contexts, max_new=48, device="cpu") -> List
     f = np.asarray([len(p) for p in prompts], np.int32)
     for i, p in enumerate(prompts):
         buf[i, : len(p)] = p
-    with optim.autocast(device):
-        p = optim.forward_params(params, device)
     done = np.zeros(B, bool)
     outs = [[] for _ in range(B)]
     for _ in range(max_new):
-        with optim.autocast(device):
-            logits, _, _ = qwen.prefill(p, cfg, torch.from_numpy(buf).long().to(device))
+        logits, _, _ = qwen.prefill(params, cfg, torch.from_numpy(buf).long().to(device))
         rows = logits[torch.arange(B, device=logits.device),
                       torch.from_numpy(f).long().to(device) - 1]
         nxt = rows.float().argmax(-1).cpu().numpy().astype(np.int32)

@@ -8,8 +8,9 @@ same loss (``whisper.encode`` + ``decode_full``, cross-entropy on the sot
 position and the text) and the same AdamW with a linear warmup and cosine
 decay.  The encoder's self-attention runs the attention kernel on the
 card (``ops/attention.py``), with the reference's backward
-(``KernelAttention``); the trainer keeps fp32 masters and AdamW state and
-runs the forward in bf16 (``tools/optim.py``).
+(``KernelAttention``, the kernel's fp32 mode); parameters, AdamW state and
+the forward are fp32 on every device, as the reference trains
+(``tools/optim.py``).
 
     python -m infernos_tpu_torch.tools.train_tiny_stt [--steps 7000]
         [--batch 32] [--lr 3e-4] [--eval-only] [--resume] [--seed 0]
@@ -247,7 +248,7 @@ def train(params, cfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
           on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
     """``steps`` updates of ``params`` in place on ``next_batch(step)``'s
     numpy batches; returns the losses."""
-    return optim.fit(loss_fn, params, opt, device, cfg,
+    return optim.fit(loss_fn, params, opt, cfg,
                      lambda step: optim.to_device(next_batch(step), device), steps,
                      log_every=log_every, on_step=on_step)
 
@@ -278,15 +279,12 @@ def greedy_decode(params, cfg, tok, mel, max_new: int = MAX_TGT - 1,
     B = mel.shape[0]
     prompt = serving_prompt(tok, lang=lang)
     P = len(prompt)
-    with optim.autocast(device):
-        p = optim.forward_params(params, device)
-        enc = wsp.encode(p, cfg, torch.from_numpy(mel).to(device).to(p["conv1"]["w"].dtype))
+    enc = wsp.encode(params, cfg, torch.from_numpy(mel).to(device).to(params["conv1"]["w"].dtype))
     buf = np.full((B, MAX_TGT), cfg.eos_token_id, np.int32)
     buf[:, :P] = prompt
     done = np.zeros(B, bool)
     for t in range(P, min(MAX_TGT, P + max_new)):
-        with optim.autocast(device):
-            logits = wsp.decode_full(p, cfg, torch.from_numpy(buf).to(device), enc)
+        logits = wsp.decode_full(params, cfg, torch.from_numpy(buf).to(device), enc)
         nxt = logits[:, t - 1].float().argmax(-1).cpu().numpy().astype(np.int32)
         nxt = np.where(done, cfg.eos_token_id, nxt)
         buf[:, t] = nxt

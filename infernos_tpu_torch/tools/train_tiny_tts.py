@@ -14,8 +14,8 @@ The prenet's consistent dropout and the scheduled-sampling draw come from
 an explicit ``torch.Generator`` (the reference draws them from
 ``jax.random``); :func:`t5_loss` also takes them injected, which the
 parity test does with the reference's own draws.  No kernel is on this
-path: SpeechT5 trains through the teacher-forced ``decode_full``.  On the
-card the forward runs in bf16 over fp32 masters (``tools/optim.py``).
+path: SpeechT5 trains through the teacher-forced ``decode_full``, in fp32
+on every device, as the reference trains (``tools/optim.py``).
 
     python -m infernos_tpu_torch.tools.train_tiny_tts [--steps 3000]
         [--voc-steps 3000] [--batch 32] [--voc-batch 16] [--lr 3e-4]
@@ -263,7 +263,7 @@ def train_t5(params, cfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
         return (f"t5 step {step} loss {loss:.4f} (pre {lb:.4f} post {la:.4f} stop {ls:.4f} "
                 f"ga {lg:.4f} ss {p_ss(step, steps):.2f})")
 
-    return optim.fit(t5_loss, params, opt, device, cfg, batch, steps, log_every=log_every,
+    return optim.fit(t5_loss, params, opt, cfg, batch, steps, log_every=log_every,
                      report=report)
 
 
@@ -311,7 +311,7 @@ def voc_optimizer(params, lr: float, steps: int) -> optim.AdamW:
 
 def train_vocoder(params, vcfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
                   steps: int, device, log_every: int = 100) -> List[float]:
-    return optim.fit(voc_loss, params, opt, device, vcfg,
+    return optim.fit(voc_loss, params, opt, vcfg,
                      lambda step: optim.to_device(next_batch(step), device), steps,
                      log_every=log_every,
                      report=lambda step, loss, _: f"voc step {step} loss {loss:.4f}")

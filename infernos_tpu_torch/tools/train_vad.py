@@ -7,8 +7,8 @@ its LSTM state carried from window to window (:func:`seq_apply`, the
 reference's ``lax.scan``), a mean binary cross-entropy and AdamW at a
 constant rate.  Nothing on that path cuts the graph: ``models/vad.apply``
 returns a new state and writes none in place (only ``NeuralVAD``, the
-serving wrapper, runs without grad).  On the card the forward runs in bf16
-over fp32 masters (``tools/optim.py``).
+serving wrapper, runs without grad).  fp32 on every device, as the
+reference trains (``tools/optim.py``).
 
     python -m infernos_tpu_torch.tools.train_vad [--steps 1500] [--batch 48]
         [--windows 12] [--lr 1e-3] [--seed 42] [--eval-only] [--out DIR]
@@ -86,7 +86,7 @@ def train(params, cfg, opt: optim.AdamW, next_batch: Callable[[int], tuple],
         acc = float(((probs.cpu().numpy() > 0.5) == last["labels"]).mean())
         return f"step {step:5d} loss {loss:.4f} acc {acc:.3f}"
 
-    return optim.fit(loss_fn, params, opt, device, cfg, batch, steps,
+    return optim.fit(loss_fn, params, opt, cfg, batch, steps,
                      log_every=log_every, report=report)
 
 

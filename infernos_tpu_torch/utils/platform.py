@@ -14,15 +14,27 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
+def full_fp32() -> None:
+    """fp32 on the card is full fp32, as on the reference's devices: TF32
+    (about three digits) neither in matmuls, which PyTorch already keeps
+    off by default, nor in cuDNN's convolutions, which it turns on."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def default_device(device: DeviceLike = None) -> torch.device:
-    """``device`` when given, else ``cuda``; raises when CUDA is absent."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card by default; pass "
-            "device='cpu' explicitly to run the plain PyTorch path")
-    return torch.device("cuda")
+    """``device`` when given, else ``cuda``; raises when CUDA is absent.
+    Selecting a CUDA device also sets :func:`full_fp32`."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; pass "
+                "device='cpu' explicitly to run the plain PyTorch path")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        full_fp32()
+    return dev
 
 
 def card_info() -> Optional[str]:

@@ -138,8 +138,11 @@ def _bad_inputs():
     wide = _bf16(2, 16, 132)
     flat = _bf16(2 * 16 * 128 + 4)
     return {
-        "fp32": (ok.float(), ok, ok, None, 2, "bf16"),
-        "fp16_v": (ok, ok, ok.half(), None, 2, "v must be bf16"),
+        "fp32": (ok.float(), ok, ok, None, 2, "share one dtype"),
+        "fp16_v": (ok, ok, ok.half(), None, 2, "share one dtype"),
+        "fp16": (ok.half(), ok.half(), ok.half(), None, 2, "bf16 or fp32"),
+        "fp32_row_stride": (ok.float(), torch.zeros(2, 16, 130)[:, :, :128],
+                            ok.float(), None, 2, "16-byte aligned"),
         "last_stride": (_bf16(2, 128, 16).transpose(1, 2), ok, ok, None, 2,
                         "last stride"),
         "row_stride": (ok, wide[:, :, :128], ok, None, 2, "16-byte aligned"),

@@ -234,7 +234,11 @@ def test_quantized_tree_never_reaches_the_bf16_kernels():
         assert all(fw[n].dtype == torch.int8 for n in ("wqkv", "wso", "wcq", "wco", "w1", "w2"))
         assert all(fw[n].dtype == torch.float32 for n in ts._SCALES)
     src = inspect.getsource(ts._kernel_decode_step)
-    assert "tts_decode_step_int8 if int8w else lib.tts_decode_step" in src
+    # the entry point by the weights' dtype (and the caches'), int8 codes
+    # only to the int8 entries
+    assert "_MODES[(int8w, cache.self_k.dtype)]" in src
+    assert all(entry.startswith("tts_decode_step_int8") == int8w
+               for (int8w, _), (entry, _) in ts._MODES.items())
     names = {n.id for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Name)} | \
         {n.attr for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Attribute)}
     for banned in ("_plain_decode_step", "matmul", "linear", "compile",

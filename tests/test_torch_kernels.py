@@ -15,6 +15,14 @@ the reference's recomputed backward) is held to fp32 autograd of the plain
 attention.  A tiny random STT
 actor (head dim 12) started on the card fails with the attention kernel's
 refusal.
+The fp32 modes: the fp32 attention kernel is held to the plain version
+within 1e-5 relative L2 (both full fp32; only the order of the sums
+differs), its autograd Function to fp32 autograd of the plain attention,
+and mixed dtypes are refused.  The decoder step over fp32 caches, with
+bf16 and with int8 weights, is held to the plain step over the same fp32
+caches within the bf16 caches' 3e-2: the weights and the kernel's rounding
+of x to bf16 before each product are the same in both cache modes, and
+only the cache rows are exact now.
 Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
 (2^-6) relative: the plain version computes in fp32 from the same bf16
 inputs, and a short masked row's output is as large as a V entry; fp32
@@ -218,9 +226,9 @@ def test_decode_step_kernel_refuses_mixed_weight_types(card):
         ts._kernel_decode_step({**fw, "sso": fw["sso"].to(torch.bfloat16)}, cfg, x, cache, pos)
 
 
-def _step_setup(card, B, int8, T=16, S=8, seed=0):
+def _step_setup(card, B, int8, T=16, S=8, seed=0, cdt=torch.bfloat16):
     """Small-width decoder weights (random LN affine and biases) packed for
-    the kernel, and caches of B slots."""
+    the kernel, and caches of B slots in ``cdt``."""
     from infernos_tpu_torch.models.quant import quantize_params
 
     cfg = st5.SpeechT5Config(hidden_size=128, decoder_layers=2,
@@ -239,7 +247,7 @@ def _step_setup(card, B, int8, T=16, S=8, seed=0):
         params = quantize_params(params, min_size=0)
     fw = ts.pack_fused_weights(params, cfg, torch.bfloat16)
     assert ts.is_int8(fw) == int8
-    init = [torch.randn((2, B, 2, t, 64), generator=g, device=card).to(torch.bfloat16)
+    init = [torch.randn((2, B, 2, t, 64), generator=g, device=card).to(cdt)
             for t in (T, T, S, S)]
     return cfg, fw, init, g
 
@@ -421,3 +429,114 @@ def test_tiny_random_stt_actor_on_the_card_fails_with_the_kernel_error(card, mon
     with pytest.raises(ValueError, match="head"):
         actor.start()
     assert actor.driver is None
+
+
+def _rel_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 250, 1500])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("layout", ["bh", "bsd"])
+def test_attention_fp32_kernel_matches_plain(card, S, masked, layout):
+    """The fp32 mode against the plain version in fp32: ``[BH, S, 64]`` and
+    ``[B, S, H * 64]`` thirds of one projection read in place, tile-edge S,
+    per-row key lengths; one fp32 launch, the bf16 count untouched."""
+    g = torch.Generator(device=card).manual_seed(7000 + S)
+    if layout == "bh":
+        H, q, k, v = 1, *(torch.randn((6, S, 64), generator=g, device=card) for _ in range(3))
+    else:
+        H = 4
+        q, k, v = torch.randn((2, S, 3 * H * 64), generator=g, device=card).split(H * 64, -1)
+    B = q.shape[0]
+    mask_add = None
+    if masked:
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=card)
+        mask_add = torch.where(torch.arange(S, device=card)[None] < lens[:, None],
+                               0.0, attn.NEG_INF)
+    before = (attn.fused_attention.launches, attn.fused_attention.launches_fp32)
+    got = attn._kernel_attention(q, k, v, mask_add, n_heads=H)
+    torch.cuda.synchronize()
+    assert (attn.fused_attention.launches, attn.fused_attention.launches_fp32) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H * 64)
+    want = _plain_bsd(q, k, v, mask_add, H)
+    assert _rel_l2(got, want) <= 1e-5
+
+
+def test_attention_kernel_refuses_mixed_dtypes_on_the_card(card):
+    q = torch.zeros((2, 8, 64), device=card)
+    with pytest.raises(ValueError, match="share one dtype"):
+        attn._kernel_attention(q, q.to(torch.bfloat16), q, None)
+    with pytest.raises(ValueError, match="share one dtype"):
+        attn.fused_attention(q, q, q.to(torch.bfloat16), n_heads=1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_attention_fp32_gradients_match_fp32_autograd_of_plain(card, masked):
+    """``fused_attention`` under grad on fp32 inputs, as a trainer calls it:
+    one fp32 launch, and dq/dk/dv within 1e-5 relative L2 of fp32 autograd
+    through the plain attention (the backward is that recompute; only the
+    forward's kernel differs)."""
+    g = torch.Generator(device=card).manual_seed(6)
+    q, k, v = (torch.randn((2, 130, 256), generator=g, device=card).requires_grad_()
+               for _ in range(3))
+    gout = torch.randn((2, 130, 256), generator=g, device=card)
+    mask = torch.arange(130, device=card)[None] < torch.tensor([[130], [77]], device=card) \
+        if masked else None
+    before = attn.fused_attention.launches_fp32
+    out = attn.fused_attention(q, k, v, n_heads=4, mask=mask)
+    assert attn.fused_attention.launches_fp32 == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = attn.by_heads(attn._plain_attention, *ref_in, n_heads=4, mask=mask)
+    want = torch.autograd.grad(ref, ref_in, gout)
+    assert _rel_l2(out.detach(), ref.detach()) <= 1e-5
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and _rel_l2(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 3, 9, 32, 40])
+@pytest.mark.parametrize("pos_kind", sorted(POS_KINDS))
+@pytest.mark.parametrize("mask_kind", ["null", "ragged"])
+def test_decode_step_fp32_caches_kernel_cases(card, mode, B, pos_kind, mask_kind):
+    """The fp32-cache modes (bf16 or int8 weights over fp32 caches): one
+    launch per group of 32 slots, counted in its own mode, against the plain
+    step over the same fp32 caches; rows other than pos and the cross caches
+    untouched, bit for bit."""
+    T, S = 16, 8
+    cfg, fw, init, g = _step_setup(card, B, mode == "int8", T, S, seed=4, cdt=torch.float32)
+    ck, cp = _cache(init), _cache(init)
+    pos = torch.tensor(POS_KINDS[pos_kind](B, T), device=card)
+    enc_mask = None
+    if mask_kind == "ragged":
+        lens = torch.arange(B, device=card) % S + 1
+        enc_mask = torch.arange(S, device=card)[None] < lens[:, None]
+    x = torch.randn((B, 1, 128), generator=g, device=card)
+    counters = ("launches", "launches_int8", "launches_fp32", "launches_int8_fp32")
+    before = [getattr(ts.fused_decode_step, c) for c in counters]
+    hk = ts.fused_decode_step(None, cfg, x, ck, pos, enc_mask, packed=fw)
+    hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
+    torch.cuda.synchronize()
+    moved = [getattr(ts.fused_decode_step, c) - b for c, b in zip(counters, before)]
+    n = ts.launches_per_step(B)
+    assert moved == ([0, 0, 0, n] if mode == "int8" else [0, 0, n, 0])
+    assert hk.dtype == torch.float32 and ck.self_k.dtype == torch.float32
+    torch.testing.assert_close(hk, hp, atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_k, cp.self_k, atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_v, cp.self_v, atol=3e-2, rtol=0)
+    wp = pos.clamp(max=T - 1)
+    changed = (ck.self_k != init[0]).any(dim=(0, 2, 4)) | \
+        (ck.self_v != init[1]).any(dim=(0, 2, 4))  # [B, T]
+    assert not changed[torch.arange(T, device=card)[None] != wp[:, None]].any()
+    assert torch.equal(ck.cross_k, init[2]) and torch.equal(ck.cross_v, init[3])
+
+
+def test_decode_step_kernel_refuses_mixed_cache_dtypes(card):
+    cfg, fw, init, g = _step_setup(card, 2, False, cdt=torch.float32)
+    cache = st5.DecoderCache(init[0], init[1].to(torch.bfloat16), init[2], init[3])
+    x = torch.zeros((2, 1, 128), device=card)
+    pos = torch.zeros(2, dtype=torch.long, device=card)
+    with pytest.raises(ValueError, match="share one dtype"):
+        ts.fused_decode_step(None, cfg, x, cache, pos, packed=fw)

@@ -9,8 +9,9 @@
   ``detokenize``;
 - ``load_tiny_stt`` / ``load_tiny_tts`` on the CPU return, leaf for leaf,
   the trees ``from_jax_params`` makes of the JAX loaders' trees, and the
-  same configs, specials and speaker table; on a CUDA device the parameters
-  and the STT engine config are bf16 (``serving_dtype``).
+  same configs, specials and speaker table; the trio is fp32 on every
+  device, and only a full-width engine is bf16, on the card only
+  (``serving_dtype``).
 """
 
 import dataclasses
@@ -297,6 +298,10 @@ def test_tts_vocoder_default_follows_the_environment(monkeypatch):
 
 
 def test_serving_dtype_is_bf16_on_the_card_only():
-    assert tiny_real.serving_dtype("cpu") == torch.float32
-    assert tiny_real.serving_dtype(torch.device("cuda")) == torch.bfloat16
+    """bf16 only for a full-width engine on the card; the tiny and tiny-real
+    engines are fp32 on every device, as the reference serves them."""
+    assert tiny_real.serving_dtype("cpu", tiny=False) == torch.float32
+    assert tiny_real.serving_dtype(torch.device("cuda"), tiny=False) == torch.bfloat16
+    for dev in ("cpu", torch.device("cuda")):
+        assert tiny_real.serving_dtype(dev, tiny=True) == torch.float32
     assert tiny_real.have_tiny_stt() and tiny_real.have_tiny_tts()

@@ -65,13 +65,15 @@ def test_gate_fails_below_80_percent(monkeypatch):
 
 
 def test_gate_runs_the_tts_in_the_loaded_dtype(monkeypatch):
-    """The card's loaders give bf16 trees; the gate's TTS engine must run in
-    that dtype (with the default fp32 config its first join raised on the
-    card).  bf16 on the CPU, one text a side."""
+    """The gate's TTS engine must run in the dtype the loaders give (an
+    engine config in another dtype than its trees raised at the first join
+    on the card).  The rule is fp32 for the tiny-real pair on every device;
+    here it is made to give bf16, on the CPU, one text a side, so that a
+    config left at the fp32 default would fail."""
     from infernos_tpu_torch.models import tiny_real
 
     torch.set_num_threads(2)
-    monkeypatch.setattr(tiny_real, "serving_dtype", lambda device: torch.bfloat16)
+    monkeypatch.setattr(tiny_real, "serving_dtype", lambda device, tiny: torch.bfloat16)
     monkeypatch.setattr(check_bilingual, "corpora",
                         lambda rng, n=12: {"en": ["please help"], "pt": ["favor ajuda"]})
     buf = io.StringIO()
@@ -140,11 +142,26 @@ def test_losses_match_optax():
         np.asarray(optax.sigmoid_binary_cross_entropy(x, y)), rtol=1e-6, atol=1e-6)
 
 
-def test_forward_params_are_bf16_on_the_card_only_and_differentiable():
+def test_the_trainers_forward_reads_the_fp32_masters_on_any_device():
+    """The reference trains in fp32: ``train_step`` hands the loss the fp32
+    parameters themselves (no device-dependent copy, no autocast), their
+    gradients are fp32 and AdamW updates them in place; no trainer casts
+    its tree or opens an autocast region."""
     p = optim.trainable({"w": torch.ones(2, 2), "n": [torch.zeros(3)], "i": torch.arange(2)})
-    assert optim.forward_params(p, "cpu") is p
-    fp = optim.map_tree(lambda t: t.to(torch.bfloat16), p)  # what the card's forward reads
-    assert fp["w"].dtype == torch.bfloat16 and fp["i"].dtype == torch.int64
-    fp["w"].float().sum().backward()
-    assert p["w"].grad.dtype == torch.float32 and torch.equal(p["w"].grad, torch.ones(2, 2))
+    seen = []
+
+    def loss_fn(params, x):
+        seen.append(params)
+        return (params["w"] * x).sum() + params["n"][0].sum(), None
+
+    opt = optim.AdamW(optim.leaves(p), 0.1, weight_decay=0.0)
+    optim.train_step(loss_fn, p, opt, torch.full((2, 2), 2.0))
+    assert seen[0] is p and seen[0]["i"].dtype == torch.int64
     assert [t.dtype for t in optim.leaves(p)] == [torch.float32] * 2
+    assert torch.allclose(p["w"], torch.full((2, 2), 0.9))  # the masters moved
+    tools = os.path.join(os.path.dirname(optim.__file__))
+    for name in sorted(os.listdir(tools)):
+        if name.endswith(".py"):
+            with open(os.path.join(tools, name)) as f:
+                text = f.read()
+            assert "autocast" not in text and "bfloat16" not in text, name
