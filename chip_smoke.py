@@ -13,15 +13,18 @@ Phases, each printing one JSON line:
                in bf16 and then (``kernel_attention_fp32``) in its fp32
                mode, each fp32 shape timed beside
                ``scaled_dot_product_attention`` on the same fp32 inputs;
-4. kernel 2 -- SpeechT5 decoder-step kernel (one cooperative launch per
-               step of up to 32 slots) vs its plain version in its four
-               modes: bf16 weights, int8 weights with per-output-channel
-               scales (``kernel_tts_step_int8``), and each over fp32
-               caches (``kernel_tts_step_fp32``,
-               ``kernel_tts_step_int8_fp32``); each mode at full width,
-               at the tiny-real TTS engine's shapes on its weights, and at
-               40 and 48 slots (a launch per group of 32, ``wide``); then
-               a tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
+4. kernel 2 -- SpeechT5 decoder-step kernel vs its plain version in its
+               four modes: bf16 weights, int8 weights with
+               per-output-channel scales (``kernel_tts_step_int8``), both
+               over bf16 caches through the grid kernel (one cooperative
+               launch per step of up to 32 slots), and each over fp32
+               caches through the cluster kernel (one launch per step, a
+               thread-block cluster per 8 slots;
+               ``kernel_tts_step_fp32``, ``kernel_tts_step_int8_fp32``);
+               each mode at full width, at the tiny-real TTS engine's
+               shapes on its weights (the fp32-cache modes also timed
+               there), and at 40 and 48 slots (``wide``); then a
+               tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
                sessions (``tts_wide_engine``, fp32 caches);
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
@@ -214,6 +217,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import logging
 import math
@@ -367,6 +371,25 @@ def sass_summary(build, name: str):
     return {"instructions": len(ops), "HGMMA": len(hgmma),
             "HMMA": sum(o.startswith("HMMA") for o in ops),
             "first_HGMMA": hgmma[0] if hgmma else None}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each kernel (mangled name) in one
+    source's ``-Xptxas -v`` report."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -540,33 +563,14 @@ def phase_attention_fp32(torch, attn):
             "rel_l2_err": max(c["rel_l2_err"] for c in cases),
             "tiny_real_ms": {f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c["ms"]
                              for c in cases if c.get("BH") in (4, 8)},
+            "tiny_real_bound_ms": {
+                f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c["bound_ms"]
+                for c in cases if c.get("BH") in (4, 8)},
             **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library_eager_ms")}}
 
 
 # -- phase 4: TTS decoder-step kernel -----------------------------------------
-
-def step_bytes(fw, cache, pos, B, with_mask=True) -> float:
-    """Bytes one step must move: weights and LN/bias params once, each
-    slot's self K/V up to its pos, the whole cross K/V, x in, h out."""
-    Lyr, _, H, _, Dh = cache.self_k.shape
-    S = cache.cross_k.shape[3]
-    D = H * Dh
-    w = sum(t.numel() * t.element_size() for t in fw.values())
-    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
-    esz = cache.self_k.element_size()  # bf16 or fp32 caches
-    self_kv = 2 * Lyr * H * Dh * esz * rows
-    cross_kv = 2 * Lyr * B * H * S * Dh * esz
-    return w + self_kv + cross_kv + (B * S * 4 if with_mask else 0) + 2 * B * D * 4
-
-
-def step_ops(fw, cache, pos, B) -> float:
-    Lyr, _, H, _, Dh = cache.self_k.shape
-    S = cache.cross_k.shape[3]
-    mats = sum(fw[n].numel() for n in ("wqkv", "wso", "wcq", "wco", "w1", "w2"))
-    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
-    return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
-
 
 def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4,
                   cdt=None):
@@ -628,11 +632,17 @@ def compare_steps(torch, ts, cfg, fw, g, B, T, S, name, lens, pos0, steps=4,
     return h_err, h16_err, row_err, untouched, ck, cp, enc_mask
 
 
-def tiny_real_steps(torch, ts, int8: bool, cdt) -> dict:
+TINY_TIMED_POS = 85  # every slot's position where the tiny-real step is timed
+
+
+def tiny_real_steps(torch, ts, int8: bool, cdt, timed: bool = False) -> dict:
     """The step kernel against its plain version at the tiny-real TTS
     engine's shapes (D 256, 4 heads, F 768, 3 layers; 8 slots, T 170 and
     S 48, as phase ``rtp_call`` builds it) on the trained weights (fp32,
-    packed in bf16 on the card, or quantized), over caches in ``cdt``."""
+    packed in bf16 on the card, or quantized), over caches in ``cdt``.
+    With ``timed``, the step at pos 85 for every slot with fp32 x (the
+    tiny-real engines' mode) is also timed, graph replay and eager,
+    beside its bound."""
     from infernos_tpu_torch.models import tiny_real
     from infernos_tpu_torch.models.quant import quantize_params
 
@@ -640,24 +650,36 @@ def tiny_real_steps(torch, ts, int8: bool, cdt) -> dict:
     fw = ts.pack_fused_weights(quantize_params(params) if int8 else params, cfg)
     check(ts.is_int8(fw) == int8, "tiny-real step: packed weights in the wrong mode")
     g = torch.Generator(device="cuda").manual_seed(9)
-    h_err, h16_err, row_err = compare_steps(
-        torch, ts, cfg, fw, g, 8, RTP_TTS_STEPS, RTP_TTS_TOKENS, "tiny-real step",
+    B = 8
+    h_err, h16_err, row_err, _, ck, _, enc_mask = compare_steps(
+        torch, ts, cfg, fw, g, B, RTP_TTS_STEPS, RTP_TTS_TOKENS, "tiny-real step",
         lens=[48, 1, 20, 48, 7, 33, 48, 12], pos0=[0, 169, 1, 80, 100, 37, 150, 7],
-        cdt=cdt)[:3]
-    return {"tiny_real_hidden_max_abs_err": h_err,
-            "tiny_real_bf16_hidden_max_abs_err": h16_err,
-            "tiny_real_cache_rows_max_abs_err": row_err}
+        cdt=cdt)
+    out = {"tiny_real_hidden_max_abs_err": h_err,
+           "tiny_real_bf16_hidden_max_abs_err": h16_err,
+           "tiny_real_cache_rows_max_abs_err": row_err}
+    if timed:
+        pos = torch.full((B,), TINY_TIMED_POS, device="cuda")
+        x = torch.randn((B, 1, cfg.hidden_size), generator=g, device="cuda")
+        step = lambda: ts.fused_decode_step(None, cfg, x, ck, pos, enc_mask, packed=fw)
+        bms, by = bound_ms(ts.step_bytes(fw, ck, pos, B), ts.step_ops(fw, ck, pos, B))
+        out.update(tiny_real_ms=graph_ms(step, 50), tiny_real_eager_ms=cuda_ms(step, 50),
+                   tiny_real_bound_ms=bms, tiny_real_bound_by=by,
+                   tiny_real_timed_pos=TINY_TIMED_POS)
+    return out
 
 
-WIDE_SLOTS = (40, 48)  # beyond one launch's MAX_B: a launch per group of 32
+WIDE_SLOTS = (40, 48)  # beyond the grid kernel's MAX_B: a launch per group of 32
 
 
 def wide_steps(torch, ts, cfg, fw, g, name: str, key: str, cdt) -> dict:
-    """The step kernel against its plain version at 40 and 48 slots (two
-    launches a step, groups of 32 and the rest, each on its slot slice of
-    the same caches), two chained steps at full width; and each width's
+    """The step kernel against its plain version at 40 and 48 slots (over
+    bf16 caches two launches a step, groups of 32 and the rest, each on its
+    slot slice of the same caches; over fp32 caches one launch of five or
+    six clusters), two chained steps at full width; and each width's
     device time per step (graph replay)."""
     out = {}
+    fp32 = cdt == torch.float32
     for B in WIDE_SLOTS:
         T, S = 512, 96
         lens = [96, 1] + [(7 * i) % S + 1 for i in range(B - 2)]
@@ -667,14 +689,14 @@ def wide_steps(torch, ts, cfg, fw, g, name: str, key: str, cdt) -> dict:
             torch, ts, cfg, fw, g, B, T, S, f"{name} B={B}", lens=lens, pos0=pos0, steps=2,
             cdt=cdt)
         moved = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
-        n = 2 * ts.launches_per_step(B)
+        n = 2 * ts.launches_per_step(B, fp32)
         check(moved == {key: n},
               f"{name} B={B}: launch counts moved by {moved}, want {key} {n} in 2 steps")
         pos = torch.full((B,), 256, device="cuda")
         x = torch.randn((B, 1, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
         out[B] = {"hidden_max_abs_err": h_err, "bf16_hidden_max_abs_err": h16_err,
                   "cache_rows_max_abs_err": row_err, "other_rows_untouched": untouched,
-                  "launches_per_step": ts.launches_per_step(B),
+                  "launches_per_step": ts.launches_per_step(B, fp32),
                   "ms_per_step": graph_ms(lambda: ts.fused_decode_step(
                       None, cfg, x, ck, pos, enc_mask, packed=fw), 20)}
     return out
@@ -683,9 +705,9 @@ def wide_steps(torch, ts, cfg, fw, g, name: str, key: str, cdt) -> dict:
 def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
     """A ``TTSEngine`` of ``slots`` slots on the card (tiny-real weights,
     fp32, Griffin-Lim) runs ``ticks`` ticks with ``slots`` sessions: every
-    step of all slots is one launch of the fp32-cache mode per group of 32,
-    counted from 0 here, and every session has finite audio by the end.
-    Returns the launches."""
+    step of all slots is one launch of the fp32-cache mode (a cluster per
+    group of at most 8 slots), counted from 0 here, and every session has
+    finite audio by the end.  Returns the launches."""
     from infernos_tpu_torch.models import tiny_real
     from infernos_tpu_torch.serving import tts_engine as tts
 
@@ -709,14 +731,15 @@ def tts_engine_wide(torch, ts, slots: int = 40, ticks: int = 6) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = path_launches(launch_counts(), f"tts {slots} slots", fp32=True)[1]
-    check(calls and launches == ts.launches_per_step(slots) * len(calls),
+    per_step = ts.launches_per_step(slots, fp32_caches=True)
+    check(calls and launches == per_step * len(calls),
           f"tts {slots} slots: {launches} launches for {len(calls)} steps")
     for i, cs in chunks.items():
         audio = [c for c in cs if c is not None]
         check(audio and all(np.isfinite(c).all() for c in audio),
               f"tts {slots} slots: session {i} has no finite audio after {ticks} ticks")
     emit("tts_wide_engine", slots=slots, sessions=slots, ticks=ticks, steps=len(calls),
-         launches=launches, launches_per_step=ts.launches_per_step(slots), wall_s=wall,
+         launches=launches, launches_per_step=per_step, wall_s=wall,
          model="tiny-real SpeechT5 (fp32, Griffin-Lim)")
     return launches
 
@@ -730,9 +753,12 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
     """The decoder-step kernel against its plain version at full width; with
     ``int8`` the weights are quantized first (int8 codes + fp32 scales) and
     the bf16 kernel's time (``bf16_ms``) is printed beside the others; with
-    ``fp32`` the caches are fp32 (the tiny and tiny-real engines' mode).
-    Also at the tiny-real engine's shapes on its trained weights, in the
-    same mode.  Returns the kernels row and the timed call (for the launch
+    ``fp32`` the caches are fp32 (the tiny and tiny-real engines' mode,
+    the cluster kernel of ``csrc/tts_step_cluster.cu``).  Also at the
+    tiny-real engine's shapes on its trained weights, in the same mode,
+    where the fp32-cache modes are also timed (pos 85: ``tiny_real_ms``,
+    ``tiny_real_eager_ms`` and ``tiny_real_bound_ms`` beside the full-width
+    numbers).  Returns the kernels row and the timed call (for the launch
     count)."""
     from infernos_tpu_torch.models.quant import quantize_params
 
@@ -757,7 +783,7 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
     moved = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
     check(moved == {key: 4}, f"{name}: launch counts moved by {moved}, want {key} 4")
     h_err, h16_err, row_err, untouched, ck, cp, enc_mask = errs
-    tiny = tiny_real_steps(torch, ts, int8, cdt)
+    tiny = tiny_real_steps(torch, ts, int8, cdt, timed=fp32)
     wide = wide_steps(torch, ts, cfg, fw, g, name, key, cdt)
 
     pos = torch.tensor([256] * B, device="cuda")  # the bound's reference point
@@ -771,8 +797,8 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
     plain_ms = cuda_ms(lambda: ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask), 10)
     # operations at the bf16 tensor-core rate in every mode (the products
     # take bf16 x and bf16 or int8 weights); the bytes set the bound
-    n_bytes = step_bytes(fw, ck, pos, B)
-    bms, by = bound_ms(n_bytes, step_ops(fw, ck, pos, B))
+    n_bytes = ts.step_bytes(fw, ck, pos, B)
+    bms, by = bound_ms(n_bytes, ts.step_ops(fw, ck, pos, B))
     extra = {"bf16_ms_per_step": bf16_ms} if bf16_ms is not None else {}
     emit("kernel_" + name.replace("tts_decode_", "tts_"), tol=STEP_TOL,
          cache_dtype=str(cdt).replace("torch.", ""),
@@ -780,14 +806,17 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
          bf16_tol=f"{STEP_TOL} + 2^-7 relative",
          cache_rows_max_abs_err=row_err, other_rows_untouched=untouched,
          ms_per_step=ms, eager_ms_per_step=eager_ms, plain_ms_per_step=plain_ms,
-         launches_per_step=ts.launches_per_step(B),
+         launches_per_step=ts.launches_per_step(B, fp32),
          step_bytes=n_bytes,
          weight_bytes=sum(t.numel() * t.element_size() for t in fw.values()),
          bound_us=bms * 1e3, bound_by=by, B=B, T=T, S=S, pos=256, **tiny, **extra,
          wide=wide)
     mode = (" (int8w mode, :128)" if int8 else "") + (" (fp32 caches, :677)" if fp32 else "")
+    tiny_t = {k: tiny[k] for k in ("tiny_real_ms", "tiny_real_eager_ms", "tiny_real_bound_ms",
+                                   "tiny_real_bound_by") if k in tiny}
     return {"name": name, "route": "cuda",
-            "source": "infernos_tpu_torch/csrc/tts_step.cu",
+            "source": "infernos_tpu_torch/csrc/" + ("tts_step_cluster.cu" if fp32
+                                                    else "tts_step.cu"),
             "replaces": "infernos_tpu/ops/tts_step.py:727" + mode,
             "max_abs_err": max(h_err, row_err, tiny["tiny_real_hidden_max_abs_err"],
                                tiny["tiny_real_cache_rows_max_abs_err"],
@@ -796,7 +825,7 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
             "bf16_hidden_max_abs_err": h16_err,
             "ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}, step
+            "library_ms": None, **tiny_t}, step
 
 
 # -- phase 5: STT engine at whisper-large-v3 width ----------------------------
@@ -5988,8 +6017,27 @@ def main(argv=None) -> int:
     build.build(verbose=True)
     sass = sass_summary(build, "attention")
     step_sass = sass_summary(build, "tts_step")
+    # the cluster kernel's shared memory (dynamic, from its plan) and how many
+    # of its clusters the card holds at once, at the tiny-real and full widths
+    cluster = {}
+    for what, (B, D, F, L) in (("tiny_real", (8, 256, 768, 3)), ("full", (8, 768, 3072, 6))):
+        for int8w in (False, True):
+            plan = ts.cluster_plan(B, D, F, L, int8w)
+            active = ctypes.c_int()
+            rc = build.load("tts_step_cluster").tts_step_cluster_max_active(
+                plan["csize"], plan["smem_bytes"], int(int8w), ctypes.byref(active))
+            check(rc == 0 and active.value >= 1,
+                  f"cluster kernel at {what}: {active.value} clusters of {plan['csize']} "
+                  f"blocks fit (cudaError_t {rc})")
+            cluster[f"{what}_{'int8' if int8w else 'bf16'}"] = {
+                "smem_bytes": plan["smem_bytes"], "csize": plan["csize"],
+                "clusters_per_step": plan["clusters"], "max_active_clusters": active.value,
+                "nslot": plan["nslot"], "slot_bytes": plan["slot_bytes"]}
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
-         attention_sass=sass, tts_step_sass=step_sass)
+         attention_sass=sass, tts_step_sass=step_sass,
+         tts_step_cluster_sass=sass_summary(build, "tts_step_cluster"),
+         ptxas={n: ptxas_summary(build.LOGS.get(n, "")) for n in build.SOURCES},
+         cluster_plans=cluster)
     check(sass is None or sass["HGMMA"] > 0,
           "the attention library holds no warpgroup product (HGMMA)")
     check(step_sass is None or step_sass["HMMA"] > 0,

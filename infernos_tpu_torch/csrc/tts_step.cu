@@ -49,18 +49,13 @@
 // and the output goes out in the same type; pos is the engine's int64 [B];
 // the encoder mask is bool [B, S] (false = -1e9 added, as the plain
 // version), or null; the 1/sqrt(Dh) attention scale is folded into the q
-// weights and biases; caches canonical [L, B, H, T, 64], bf16 or fp32.
+// weights and biases; caches canonical [L, B, H, T, 64] bf16.
 //
-// fp32-cache mode (the caches' dtype of the same Pallas kernel, which takes
-// self_dtype and cross_dtype from its caches: fp32 for the tiny and
-// tiny-real engines): step_kernel<WT, CT> with CT = float writes the new
-// self K/V row at pos in fp32 and reads every cache row in fp32; the
-// weights stay bf16 or int8 (the reference packs them in bf16 whatever the
-// params' dtype, tts_step.py:570), so the four entries below are the pairs
-// (bf16 | int8 weights) x (bf16 | fp32 caches) of one source.  Cache rows
-// go from memory to registers, not through shared memory, so the launch
-// plan is the same in every mode; at D 768, B 8, pos 256 the fp32 caches
-// add about 52 MB to the bytes of a step.
+// The caches' element type is the template argument CT of step_kernel<WT,
+// CT> and attn_item<CT> (Chunk<CT> below); this source instantiates bf16
+// caches only.  The fp32-cache mode of the same Pallas kernel (self_dtype
+// and cross_dtype from its caches: fp32 for the tiny and tiny-real engines)
+// is csrc/tts_step_cluster.cu, designed for the tiny-real step it serves.
 //
 // int8-weight mode (the int8w branch of the same Pallas kernel,
 // tts_decode_step_int8 below): every big matrix is int8 codes with an fp32
@@ -217,11 +212,10 @@ __device__ __forceinline__ float finish(float s, int col, const float* __restric
 // new row; so an item waits for memory about once and not once a pass.
 // The rows loaded before the new row was written are patched from shared
 // memory where they are that row.
-// CT is the caches' element type: bf16, or float in the fp32-cache mode.
-// A K row is DH * sizeof(CT) bytes (8 or 16 loads of 16 bytes a thread) and
-// a lane's 8 dims of a V row one or two such loads; the rows go from memory
-// to registers, never through shared memory, so the launch plan is the same
-// in both cache modes.
+// CT is the caches' element type (bf16 here).  A K row is DH * sizeof(CT)
+// bytes (8 loads of 16 bytes a thread) and a lane's 8 dims of a V row one
+// such load; the rows go from memory to registers, never through shared
+// memory.
 template <typename CT>
 struct Chunk;  // 16 bytes of a cache row as floats, and back
 
@@ -245,24 +239,6 @@ struct Chunk<bf16> {
   }
   static __device__ __forceinline__ bf16 store(float v) { return __float2bfloat16(v); }
   static __device__ __forceinline__ float load(bf16 v) { return __bfloat162float(v); }
-};
-
-template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-  static constexpr int VPF = 4;  // half as many rows as bf16, each twice the registers
-  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
-    f[0] = __uint_as_float(raw.x);
-    f[1] = __uint_as_float(raw.y);
-    f[2] = __uint_as_float(raw.z);
-    f[3] = __uint_as_float(raw.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-  static __device__ __forceinline__ float store(float v) { return v; }
-  static __device__ __forceinline__ float load(float v) { return v; }
 };
 
 
@@ -1165,16 +1141,4 @@ extern "C" int tts_decode_step_int8(const void* const* ptrs, const int* dims, co
                                     float eps, int grid, void* stream) {
   if (!have_scales(ptrs)) return (int)cudaErrorInvalidValue;
   return launch<int8_t, bf16>(ptrs, dims, plan, eps, grid, stream);
-}
-
-// The fp32-cache modes: bf16 weights, or int8 codes, over fp32 caches.
-extern "C" int tts_decode_step_fp32(const void* const* ptrs, const int* dims, const int* plan,
-                                    float eps, int grid, void* stream) {
-  return launch<bf16, float>(ptrs, dims, plan, eps, grid, stream);
-}
-
-extern "C" int tts_decode_step_int8_fp32(const void* const* ptrs, const int* dims,
-                                         const int* plan, float eps, int grid, void* stream) {
-  if (!have_scales(ptrs)) return (int)cudaErrorInvalidValue;
-  return launch<int8_t, float>(ptrs, dims, plan, eps, grid, stream);
 }

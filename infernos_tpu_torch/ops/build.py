@@ -21,10 +21,11 @@ from typing import Dict, Optional, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("attention", "tts_step")
+SOURCES = ("attention", "tts_step", "tts_step_cluster")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # the compiler's report of each source, from a verbose build
 
 
 def _nvcc() -> str:
@@ -77,6 +78,7 @@ def build(names: Sequence[str] = SOURCES, verbose: bool = False) -> float:
             continue
         if verbose and out:
             print(out)
+            LOGS[n] = out
         os.replace(tmp, _lib_path(n))
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -28,17 +28,23 @@ dequantizing.
 
 Two cache modes, as the Pallas kernel takes its cache dtypes from the
 caches: bf16 caches (the full-width engines on the card), or fp32 caches
-(the tiny and tiny-real engines), whose K/V rows the kernel writes and
-reads in fp32.  The weights stay bf16 or int8 codes in both, as the
-reference's ``wdt`` packs them (:func:`pack_fused_weights`).  Each of the
-four modes counts its own launches: ``fused_decode_step.launches`` (bf16
-weights, bf16 caches), ``.launches_int8``, ``.launches_fp32`` (bf16
-weights, fp32 caches) and ``.launches_int8_fp32``.
+(the tiny and tiny-real engines), whose K/V rows are written and read in
+fp32.  The weights stay bf16 or int8 codes in both, as the reference's
+``wdt`` packs them (:func:`pack_fused_weights`).  The fp32-cache modes
+run a kernel of their own, ``csrc/tts_step_cluster.cu``, designed for the
+tiny-real step they serve: one thread-block cluster per group of at most
+``CLUSTER_ROWS`` slots keeps the hidden state in shared memory
+(:func:`cluster_plan`).  Each of the four modes counts its own launches:
+``fused_decode_step.launches`` (bf16 weights, bf16 caches),
+``.launches_int8``, ``.launches_fp32`` (bf16 weights, fp32 caches) and
+``.launches_int8_fp32``.
 
-One launch takes at most ``MAX_B`` slots.  A step of more slots runs the
-kernel once per group of at most ``MAX_B`` slots, in slot order, on the
-caller's stream (:func:`run_groups`): each launch reads its slots of the
-caches in place, so ``launches_per_step(B)`` is ``ceil(B / MAX_B)``.
+One launch of the grid kernel (bf16 caches) takes at most ``MAX_B``
+slots.  A step of more slots runs it once per group of at most ``MAX_B``
+slots, in slot order, on the caller's stream (:func:`run_groups`): each
+launch reads its slots of the caches in place.  The cluster kernel (fp32
+caches) takes any number of slots in one launch, a cluster per slot
+group.  :func:`launches_per_step` gives the launches of a step by mode.
 """
 
 from __future__ import annotations
@@ -71,9 +77,11 @@ MAX_SPLITS = 8  # most K splits of one product (the kernel's partial-sum registe
 _CACHES = ("self_k", "self_v", "cross_k", "cross_v")
 
 
-def launches_per_step(B: int) -> int:
-    """Kernel launches of one step of ``B`` slots: one per slot group."""
-    return -(-B // MAX_B)
+def launches_per_step(B: int, fp32_caches: bool = False) -> int:
+    """Kernel launches of one step of ``B`` slots: over bf16 caches one per
+    group of at most ``MAX_B`` slots, over fp32 caches one (the cluster
+    kernel's clusters take every slot group)."""
+    return 1 if fp32_caches else -(-B // MAX_B)
 
 
 # -- the panel layout -------------------------------------------------------------
@@ -369,6 +377,197 @@ def plan_ints(plan: dict) -> list:
         plan["smem_bytes"]]
 
 
+# -- the cluster kernel's plan (fp32 caches) ---------------------------------------
+
+CLUSTER_ROWS = 8  # most slots one cluster owns (the products' n8 column tile)
+# Up to CLUSTER_SPREAD_SLOTS slots, clusters of at most 4 slots: more SMs
+# (and their L2 bandwidth) for the attention items, one item a block at
+# the tiny-real width; beyond, 8 (fewer clusters than the card holds at once).
+CLUSTER_SPREAD_SLOTS = 16
+CLUSTER_SIZE = 16  # blocks a cluster (non-portable above 8; the card's GPCs hold 16)
+CLUSTER_MAX_PAIRS = 32  # (panel, K range) pairs of one block's product
+CLUSTER_MAX_NP = 16  # most panels of one product a block owns
+CLUSTER_MAX_SLOTS = 8  # most weight slots a block's ring holds
+CLUSTER_MAX_ITEMS = 16  # attention items a block owns at most
+# per-warp sums, the items' rows, the mbarriers (LayerNorm, biases, the ring's),
+# the block's share of each product
+CLUSTER_SMALL = (NWARPS * HEAD_DIM + 2 * NWARPS + CLUSTER_MAX_ITEMS) * 4 + \
+    (CLUSTER_MAX_SLOTS + 2) * 8 + len(_GEMMS) * 9 * 4
+
+
+def k_splits(np_: int) -> int:
+    """K ranges a block's ``np_`` panels of a product are cut into over its
+    8 warps: as many as give every warp the same number of (panel, range)
+    pairs, at most ``CLUSTER_MAX_PAIRS`` pairs (``k_splits`` of the source)."""
+    g = 8
+    while np_ % g:
+        g //= 2
+    q = NWARPS // g
+    while np_ * q > CLUSTER_MAX_PAIRS and q > 1:
+        q //= 2
+    return q
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(B: int, D: int, F: int, L: int, int8w: bool, csize: int = CLUSTER_SIZE,
+                 rows: Optional[int] = None) -> dict:
+    """The cluster kernel's launch plan for a step of ``B`` slots through
+    ``L`` layers of width ``D`` (FFN ``F``), as ``csrc/tts_step_cluster.cu``
+    reads it (cached: treat it as read-only).
+
+    ``ceil(B / rows)`` clusters of ``csize`` blocks own the slots in groups
+    of equal size (the last one smaller), ``rows`` by default 4 up to
+    ``CLUSTER_SPREAD_SLOTS`` slots and 8 beyond; block r of a cluster owns panels
+    ``[r P / csize, (r + 1) P / csize)`` of each product of P panels (all
+    K), split over its warps into ``k_splits`` K ranges, and the cluster's
+    (slot, head) items ``r, r + csize, ...``, a team of warps each.  Its
+    shared memory holds a ring of weight slots (a slot a chunk of K tiles
+    of the block's panels), the residual and the gathered h + y in fp32,
+    the two bf16 input-row buffers, its items' q, k and v, the per-pair
+    partial sums, the per-warp attention sums, the next LayerNorm's
+    parameters and the biases (and int8 scales) of its columns of every
+    product of every layer.  Raises ValueError where a shape
+    does not fit: a block finishing more than ``CLUSTER_MAX_NP`` panels of
+    a product (N > 4096 at 16 blocks), or state leaving no room for two
+    ring slots in 232,448 bytes.  SpeechT5's full width (D 768, F 3072)
+    fits at 8 slots a cluster."""
+    if rows is None:
+        rows = 4 if B <= CLUSTER_SPREAD_SLOTS else CLUSTER_ROWS
+    if B < 1 or rows < 1 or rows > CLUSTER_ROWS or csize < 1 or csize > 16 or D % HEAD_DIM:
+        raise ValueError(f"tts_step cluster kernel: no plan for B {B}, D {D}, "
+                         f"{rows} slots and {csize} blocks a cluster")
+    H = D // HEAD_DIM
+    clusters = -(-B // rows)
+    rows = -(-B // clusters)  # the groups as equal as they come
+    esz = 1 if int8w else 2
+    gemms = []
+    for K, N in gemm_shapes(D, F):
+        P, KT = N // TILE, K // TILE
+        shares = [(r * P // csize, (r + 1) * P // csize - r * P // csize)
+                  for r in range(csize)]
+        np_max = max(n for _, n in shares)
+        if np_max > CLUSTER_MAX_NP:
+            raise ValueError(
+                f"tts_step cluster kernel: a product of {N} columns gives a block "
+                f"{np_max} panels of 16 at {csize} blocks a cluster; it takes at most "
+                f"{CLUSTER_MAX_NP} (N <= {CLUSTER_MAX_NP * TILE * csize})")
+        gemms.append({"K": K, "N": N, "P": P, "KT": KT, "shares": shares,
+                      "np_max": np_max, "pairs": max(n * k_splits(n) for _, n in shares if n)})
+    ipb = -(-rows * H // csize)
+    if ipb > CLUSTER_MAX_ITEMS:
+        raise ValueError(f"tts_step cluster kernel: {ipb} attention items a block; "
+                         f"it takes at most {CLUSTER_MAX_ITEMS}")
+    teams = 1
+    while teams < min(ipb, NWARPS):
+        teams *= 2
+    xs0_stride = D + 8
+    xs1_stride = max(D, F) + 8
+    sizes = {"h": rows * D * 4, "pre": rows * D * 4,
+             "xs0": CLUSTER_ROWS * xs0_stride * 2, "xs1": CLUSTER_ROWS * xs1_stride * 2,
+             "qkv": ipb * 3 * HEAD_DIM * 4,
+             "red": max(g["pairs"] for g in gemms) * TILE * CLUSTER_ROWS * 4,
+             "ln": 2 * D * 4,
+             "bias": L * sum(g["np_max"] * TILE for g in gemms) * 4 * (2 if int8w else 1),
+             "small": CLUSTER_SMALL}
+    fixed = sum(_a128(v) for v in sizes.values())
+    np_all = max(g["np_max"] for g in gemms)
+    top = max(g["np_max"] * g["KT"] for g in gemms)  # a whole product a slot
+
+    def slot_bytes(t):  # the largest chunk of t tiles at most, over every share
+        return _a128(max(n * min(g["KT"], t // n) for g in gemms for _, n in g["shares"]
+                         if n) * TILE * TILE * esz)
+
+    cands, t = [], top
+    while t >= np_all and (not cands or t < cands[-1]):
+        cands.append(t)
+        t = max(np_all, t // 2) if t > np_all else t - 1
+    choice = None
+    for need in (3, 2):  # the largest slots that leave three in the ring, else two
+        for t in cands:
+            nslot = min(CLUSTER_MAX_SLOTS, (SMEM_MAX - fixed) // slot_bytes(t))
+            if nslot >= need:
+                choice = (t, nslot)
+                break
+        if choice:
+            break
+    if choice is None:
+        raise ValueError(f"tts_step cluster kernel: the state of D {D}, F {F} at "
+                         f"{rows} slots a cluster ({fixed} bytes) leaves no room for two "
+                         f"weight slots of {slot_bytes(np_all)} bytes in {SMEM_MAX}")
+    t, nslot = choice
+    offs, at = {}, nslot * slot_bytes(t)
+    for k, v in sizes.items():
+        offs[k] = at
+        at += _a128(v)
+    return {"B": B, "D": D, "F": F, "L": L, "H": H, "rows": rows, "csize": csize,
+            "clusters": clusters, "teams": teams, "ipb": ipb, "nslot": nslot,
+            "slot_bytes": slot_bytes(t), "slot_tiles": t, "offsets": offs, "sizes": sizes,
+            "xs0_stride": xs0_stride, "xs1_stride": xs1_stride, "smem_bytes": at,
+            "gemms": gemms}
+
+
+def cluster_plan_ints(plan: dict) -> list:
+    """The plan as ``tts_decode_step_fp32`` takes it."""
+    o = plan["offsets"]
+    return [plan[k] for k in ("rows", "csize", "clusters", "teams", "ipb", "nslot",
+                              "slot_bytes", "slot_tiles")] + [
+        o[k] for k in ("h", "pre", "xs0", "xs1", "qkv", "red", "ln", "bias", "small")] + [
+        plan["xs0_stride"], plan["xs1_stride"], plan["smem_bytes"]]
+
+
+def cluster_chunks(plan: dict, g: int, rank: int) -> list:
+    """Block ``rank``'s chunks of product ``g`` as the kernel copies and
+    consumes them: ``(first K tile, K tiles)`` each, over its panels."""
+    gm = plan["gemms"][g]
+    _, n = gm["shares"][rank]
+    if not n:
+        return []
+    kc = min(gm["KT"], plan["slot_tiles"] // n)
+    return [(k0, min(kc, gm["KT"] - k0)) for k0 in range(0, gm["KT"], kc)]
+
+
+def cluster_items(plan: dict, cluster: int) -> list:
+    """The attention items of cluster ``cluster`` as the kernel runs them:
+    ``(slot, head, block, index in the block's qkv buffer, team, round)``."""
+    R = min(plan["rows"], plan["B"] - cluster * plan["rows"])
+    C, teams = plan["csize"], plan["teams"]
+    out = []
+    for item in range(R * plan["H"]):
+        k = item // C
+        out.append((cluster * plan["rows"] + item // plan["H"], item % plan["H"],
+                    item % C, k, k % teams, k // teams))
+    return out
+
+
+# -- the bound ------------------------------------------------------------------------
+
+def step_bytes(fw: PackedWeights, cache, pos, B: int, with_mask: bool = True) -> float:
+    """Bytes one step must move: weights and LN/bias params once, each
+    slot's self K/V up to its pos, the whole cross K/V, x in, h out."""
+    Lyr, _, H, _, Dh = cache.self_k.shape
+    S = cache.cross_k.shape[3]
+    D = H * Dh
+    w = sum(t.numel() * t.element_size() for t in fw.values())
+    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
+    esz = cache.self_k.element_size()  # bf16 or fp32 caches
+    self_kv = 2 * Lyr * H * Dh * esz * rows
+    cross_kv = 2 * Lyr * B * H * S * Dh * esz
+    return w + self_kv + cross_kv + (B * S * 4 if with_mask else 0) + 2 * B * D * 4
+
+
+def step_ops(fw: PackedWeights, cache, pos, B: int) -> float:
+    """Operations of one step: the products and both attentions."""
+    Lyr, _, H, _, Dh = cache.self_k.shape
+    S = cache.cross_k.shape[3]
+    mats = sum(fw[n].numel() for n in _GEMMS)
+    rows = float((pos.clamp(max=cache.self_k.shape[3] - 1) + 1).sum().item())
+    return 2.0 * B * mats + 4.0 * Lyr * H * Dh * (rows + B * S)
+
+
 # -- the launch -----------------------------------------------------------------------
 
 def _check_step_args(fw: PackedWeights, x, cache, pos, enc_mask):
@@ -431,6 +630,9 @@ _MODES = {(False, torch.bfloat16): ("tts_decode_step", "launches"),
           (True, torch.bfloat16): ("tts_decode_step_int8", "launches_int8"),
           (False, torch.float32): ("tts_decode_step_fp32", "launches_fp32"),
           (True, torch.float32): ("tts_decode_step_int8_fp32", "launches_int8_fp32")}
+# the caches' dtype -> the library of its kernel: the grid kernel over bf16
+# caches, the cluster kernel over fp32 caches
+_LIBRARIES = {torch.bfloat16: "tts_step", torch.float32: "tts_step_cluster"}
 
 _scratch: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
@@ -501,6 +703,37 @@ def _launch(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
     return out
 
 
+def _launch_cluster(fn, fw: PackedWeights, cfg, x, cache, pos, enc_mask, plan: dict,
+                    trace: Optional[torch.Tensor] = None):
+    """Call the cluster kernel's C entry point ``fn`` (of ``fw``'s weight
+    mode) with ``plan`` (:func:`cluster_plan`) on arguments
+    :func:`_check_step_args` has passed; returns the hidden state in x's
+    dtype.  No scratch: the state lives in the clusters' shared memory.
+    ``trace`` goes to a build with ``-DTTS_TRACE``
+    (``ops/tts_step_ablate.py``)."""
+    Lyr, B, H, T, Dh = cache.self_k.shape
+    bc = cache.self_k.stride(0) // cache.self_k.stride(1)  # the caches' slots
+    S, F = cache.cross_k.shape[3], fw["b1"].shape[1]
+    int8w = is_int8(fw)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty_like(x)
+    scales = [fw[n] if int8w else None for n in _SCALES]
+    ptrs = [x, out, pos, enc_mask, *(fw[n] for n in _GEMMS),
+            *(fw[n] for n in _BIASES), *scales, *(fw[n] for n in _LNS),
+            cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
+            *([trace] if trace is not None else [])]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(
+        *(None if t is None else t.data_ptr() for t in ptrs))
+    dims = (ctypes.c_int * 8)(Lyr, B, H, T, S, F, int(x.dtype == torch.bfloat16), bc)
+    ints = cluster_plan_ints(plan)
+    rc = fn(c_ptrs, dims, (ctypes.c_int * len(ints))(*ints), float(cfg.layer_norm_eps),
+            stream)
+    build.check(rc, fn.__name__)
+    return out
+
+
 def run_groups(step_group, x, cache, pos, enc_mask=None):
     """Run ``step_group(x, cache, pos, enc_mask, out)`` once per group of at
     most ``MAX_B`` slots, in slot order; returns the ``[B, 1, D]`` hidden.
@@ -520,27 +753,41 @@ def run_groups(step_group, x, cache, pos, enc_mask=None):
     return out
 
 
-def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
-    """The step kernel on every slot; same contract as
-    :func:`_plain_decode_step`.  int8 codes go to ``tts_decode_step_int8``
-    with their scales, bf16 weights to ``tts_decode_step``, each with the
-    suffix ``_fp32`` over fp32 caches (:data:`_MODES`); anything else
-    raises.  x is read as given and the hidden state comes back in x's
-    dtype; pos is read as int64 and the bool mask as it is.  Each launch is
-    cooperative, one block per SM, and takes a group of at most ``MAX_B``
-    slots (:func:`run_groups`); each counts once."""
-    Lyr, B, H, T, S, D, F = _check_step_args(fw, x, cache, pos, enc_mask)
+def _check_device(fw: PackedWeights, x, cache, pos, enc_mask) -> torch.device:
+    """The one CUDA device every tensor of the step lies on, or ValueError."""
     dev = x.device
-    tensors = [x, pos, *(getattr(cache, n) for n in ("self_k", "self_v", "cross_k",
-                                                      "cross_v"))]
+    tensors = [x, pos, *(getattr(cache, n) for n in _CACHES)]
     if enc_mask is not None:
         tensors.append(enc_mask)
     if dev.type != "cuda" or any(t.device != dev for t in tensors) \
             or any(fw[n].device != dev for n in _GEMMS):
         raise ValueError("tts_step kernel: tensors must be on one CUDA device")
+    return dev
+
+
+def _kernel_decode_step(fw: PackedWeights, cfg, x, cache, pos, enc_mask=None):
+    """The step kernel on every slot; same contract as
+    :func:`_plain_decode_step`.  int8 codes go to ``tts_decode_step_int8``
+    with their scales, bf16 weights to ``tts_decode_step``, each with the
+    suffix ``_fp32`` over fp32 caches (:data:`_MODES`, in the library of
+    :data:`_LIBRARIES`); anything else raises.  x is read as given and the
+    hidden state comes back in x's dtype; pos is read as int64 and the bool
+    mask as it is.  Over bf16 caches each launch is cooperative, one block
+    per SM, and takes a group of at most ``MAX_B`` slots
+    (:func:`run_groups`); over fp32 caches one launch of the cluster
+    kernel takes every slot (:func:`cluster_plan`, which raises ValueError
+    for a shape its shared memory cannot hold).  Each launch counts once."""
+    Lyr, B, H, T, S, D, F = _check_step_args(fw, x, cache, pos, enc_mask)
+    plan = (cluster_plan(B, D, F, Lyr, is_int8(fw)) if cache.self_k.dtype == torch.float32
+            else None)  # a shape the cluster kernel cannot hold raises here
+    dev = _check_device(fw, x, cache, pos, enc_mask)
     int8w = is_int8(fw)
     entry, counter = _MODES[(int8w, cache.self_k.dtype)]
-    fn = getattr(build.load("tts_step"), entry)
+    fn = getattr(build.load(_LIBRARIES[cache.self_k.dtype]), entry)
+    if cache.self_k.dtype == torch.float32:  # one launch, a cluster per slot group
+        out = _launch_cluster(fn, fw, cfg, x, cache, pos, enc_mask, plan)
+        setattr(fused_decode_step, counter, getattr(fused_decode_step, counter) + 1)
+        return out
 
     def launch_group(xg, group, pg, mg, out):
         _launch(fn, fw, cfg, xg, group, pg, mg,
@@ -559,9 +806,10 @@ def fused_decode_step(params, cfg, x, cache, pos, enc_mask=None, *,
 
     On the card x must be fp32 or bf16, pos int64, enc_mask bool and the
     four caches all bf16 or all fp32, as the engine gives them, with T and
-    S at most 4096; anything else raises
-    ValueError.  More than ``MAX_B`` slots take one launch per group of at
-    most ``MAX_B`` (:func:`launches_per_step`).  The CPU path is more lenient (any integer pos,
+    S at most 4096 (and, over fp32 caches, a width :func:`cluster_plan`
+    holds); anything else raises ValueError.  Over bf16 caches more than
+    ``MAX_B`` slots take one launch per group of at most ``MAX_B``, over
+    fp32 caches every step is one launch (:func:`launches_per_step`).  The CPU path is more lenient (any integer pos,
     a mask that ``.bool()`` reads); callers that may run on either device
     keep to the card's terms.
 

@@ -22,6 +22,25 @@ beside the plan the wrapper takes there.  The ablated builds compute wrong
 results on purpose; only their times mean anything.  Needs an NVIDIA card
 (sm_90a) and ``nvcc``; prints one JSON line, device microseconds per step
 (20 steps captured in one CUDA graph, the replay timed with CUDA events).
+
+    python -m infernos_tpu_torch.ops.tts_step_ablate --tiny-real [--quick]
+
+times the step instead at the tiny-real TTS engine's shape (the trained
+tiny-real weights, D 256, 4 heads, F 768, 3 layers; 8 slots, T 170, S 48,
+fp32 x), with bf16 and with int8 weights: ``fused_decode_step`` over fp32
+caches (the kernel the wrapper launches for them), at the positions of
+``chip_smoke.tiny_real_steps`` and at pos 85 for every slot, graph replay
+and eager, beside the bound (:func:`tts_step.step_bytes`,
+:func:`tts_step.step_ops`).  Without ``--quick`` also: the grid kernel of
+``csrc/tts_step.cu`` built whole and with ``-DTTS_TRACE`` at the same
+shape, over fp32 caches where that library has an fp32-cache entry (before
+the cluster kernel) and over bf16 caches where it has not, its trace
+summed up by phase kind (:func:`trace_rollup`); and the cluster kernel of
+``csrc/tts_step_cluster.cu`` at pos 85 built whole (also under other
+cluster sizes and slot groups, ``CLUSTER_SHAPES``), with parts compiled
+out (``CLUSTER_VARIANTS``) and traced (:func:`cluster_rollup`).
+``--quick`` runs in the tree of a commit before the cluster kernel too, so
+one chip call can time parent and change in turns.
 """
 
 from __future__ import annotations
@@ -38,6 +57,9 @@ from ..models import speecht5 as st5
 from ..models.quant import quantize_params
 from . import build
 from . import tts_step as ts
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate (as chip_smoke.py)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 PHASES = ("qkv", "self_attn", "so", "cq", "cross_attn", "co", "w1", "w2")
 POINTS = ("start", "x_staged", "weights_in", "products", "partials_out", "split_sums",
@@ -102,16 +124,205 @@ def trace_summary(tr: torch.Tensor, Lyr: int) -> dict:
                         prev = b[ph][j]
             for n in seg:
                 segs[n].append(seg[n])
-        out[name] = {"wall_us": sum(walls) / Lyr, "work_max_us": sum(works) / Lyr}
-        if "attn" not in name:
-            out[name]["segment_max_us"] = {n: sum(v) / Lyr for n, v in segs.items()}
+        out[name] = {"wall_us": sum(walls) / Lyr, "work_max_us": sum(works) / Lyr,
+                     "segment_max_us": {n: sum(v) / Lyr for n, v in segs.items()}}
     return out
+
+
+def trace_rollup(summary: dict, Lyr: int) -> dict:
+    """One step's microseconds by phase kind, from :func:`trace_summary`:
+    waiting at the barriers (each phase's wall less its longest block's
+    work), staging x, waiting for the weights, the products and their sums
+    (products, partials, split sums, LN sums), and the attention phases'
+    longest block's work.  The segments are each the longest block's, so
+    the kinds need not add up to the step."""
+    gemms = [p for p in PHASES if "attn" not in p]
+    seg = lambda names: Lyr * sum(summary[p]["segment_max_us"][n] for p in gemms
+                                  for n in names)
+    return {"barrier_us": Lyr * sum(summary[p]["wall_us"] - summary[p]["work_max_us"]
+                                    for p in PHASES),
+            "x_staging_us": seg(("x_staged",)),
+            "weights_wait_us": seg(("weights_in",)),
+            "products_us": seg(("products", "partials_out", "split_sums", "ln_sums")),
+            "attention_us": Lyr * sum(summary[p]["work_max_us"] for p in PHASES
+                                      if "attn" in p),
+            "step_us": summary["step_us"]}
+
+
+def cluster_rollup(summary: dict, Lyr: int) -> dict:
+    """One step of the cluster kernel by phase kind, from
+    :func:`trace_summary` of its trace: waiting at the cluster barriers
+    (each phase's wall less its longest block's work), the LayerNorm before
+    a product (x staged), waiting for the first weights, the products, the
+    partial sums, the finishing and the pushes to the peers, and the
+    attention phases' longest block's work."""
+    gemms = [p for p in PHASES if "attn" not in p]
+    seg = lambda n: Lyr * sum(summary[p]["segment_max_us"][n] for p in gemms)
+    aseg = lambda n: Lyr * sum(summary[p]["segment_max_us"][n] for p in PHASES if "attn" in p)
+    return {"barrier_us": Lyr * sum(summary[p]["wall_us"] - summary[p]["work_max_us"]
+                                    for p in PHASES),
+            "layernorm_us": seg("x_staged"), "weights_wait_us": seg("weights_in"),
+            "products_us": seg("products"), "partials_us": seg("partials_out"),
+            "finish_push_us": seg("split_sums"),
+            "attention_us": Lyr * sum(summary[p]["work_max_us"] for p in PHASES
+                                      if "attn" in p),
+            # its points: 1 keys done, 2 merged over the team, 3 pushed
+            "attention_keys_us": aseg("x_staged"), "attention_merge_us": aseg("weights_in"),
+            "attention_push_us": aseg("products"),
+            "step_us": summary["step_us"]}
+
+
+# the cluster kernel built whole, traced, and with parts compiled out
+CLUSTER_VARIANTS = {
+    "whole": [],
+    "trace": ["-DTTS_TRACE"],
+    "no_push": ["-DCLUSTER_ABLATE_PUSH"],
+    "no_attn": ["-DCLUSTER_ABLATE_ATTN"],
+    "no_ln": ["-DCLUSTER_ABLATE_LN"],
+    "no_mma": ["-DCLUSTER_ABLATE_MMA"],
+    "barriers_copies": ["-DCLUSTER_ABLATE_PUSH", "-DCLUSTER_ABLATE_ATTN",
+                        "-DCLUSTER_ABLATE_LN", "-DCLUSTER_ABLATE_MMA"],
+}
+# (blocks a cluster, slots a cluster) timed beside the plan's own
+CLUSTER_SHAPES = ((16, 8), (16, 4), (16, 2), (8, 8), (8, 4), (8, 2), (4, 2))
+TINY_B, TINY_T, TINY_S = 8, 170, 48  # the tiny-real TTS engine (cluster/model_actors.py)
+TINY_POS = (0, 169, 1, 80, 100, 37, 150, 7)  # chip_smoke.tiny_real_steps' positions
+TINY_LENS = (48, 1, 20, 48, 7, 33, 48, 12)  # and its encoder lengths
+TINY_TIMED_POS = 85
+
+
+def _eager_us(step, iters: int = 50) -> float:
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        step()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters * 1e3
+
+
+def tiny_real_main() -> int:
+    """``--tiny-real``: see the module's docstring."""
+    from ..models import tiny_real
+
+    out_dir = os.path.join(build.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(build.CSRC_DIR, "tts_step.cu")
+    quick = "--quick" in sys.argv[1:]  # the wrapper's kernel alone: nothing built here
+    names = () if quick else ("whole", "trace")
+    procs = {n: subprocess.Popen(
+        build.nvcc_command(src, os.path.join(out_dir, f"libtts_{n}.so"), VARIANTS[n]),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names}
+    cluster_src = os.path.join(build.CSRC_DIR, "tts_step_cluster.cu")
+    cluster_procs = {n: subprocess.Popen(
+        build.nvcc_command(cluster_src, os.path.join(out_dir, f"libtts_cluster_{n}.so"), f),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n, f in CLUSTER_VARIANTS.items()} if os.path.exists(cluster_src) and not quick else {}
+    params, cfg = tiny_real.load_tiny_tts("gl", "cuda")[:2]
+    trees = {"bf16": params, "int8": quantize_params(params)}
+    B, T, S = TINY_B, TINY_T, TINY_S
+    Lyr, H, Dh, D, F = (cfg.decoder_layers, cfg.decoder_attention_heads, cfg.head_dim,
+                        cfg.hidden_size, cfg.decoder_ffn_dim)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    init = [torch.randn((Lyr, B, H, n, Dh), generator=g, device="cuda") for n in (T, T, S, S)]
+    x = torch.randn((B, 1, D), generator=g, device="cuda")
+    enc_mask = torch.arange(S, device="cuda")[None] < torch.tensor(TINY_LENS, device="cuda")[:, None]
+    positions = {"spread": torch.tensor(TINY_POS, device="cuda"),
+                 f"pos{TINY_TIMED_POS}": torch.full((B,), TINY_TIMED_POS, device="cuda")}
+    grid = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {"device": torch.cuda.get_device_name(0), "B": B, "T": T, "S": S, "D": D,
+              "F": F, "H": H, "L": Lyr, "positions": {k: v.tolist() for k, v in positions.items()},
+              "fused": {}, "grid_kernel": {}}
+    cache32 = st5.DecoderCache(*init)
+    for mode, tree in trees.items():
+        fw = ts.pack_fused_weights(tree, cfg)
+        for pname, pos in positions.items():
+            step = lambda fw=fw, pos=pos: ts._kernel_decode_step(fw, cfg, x, cache32, pos,
+                                                                 enc_mask)
+            n_bytes = ts.step_bytes(fw, cache32, pos, B)
+            bound = max(n_bytes / PEAK_BYTES, ts.step_ops(fw, cache32, pos, B) / PEAK_BF16_FLOPS)
+            result["fused"][f"{mode}_{pname}"] = {
+                "graph_us": _time_us(step), "eager_us": _eager_us(step),
+                "bound_us": bound * 1e6, "step_bytes": n_bytes}
+    for n, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {n}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"libtts_{n}.so"))
+        fp32 = hasattr(lib, "tts_decode_step_fp32")
+        cdt = torch.float32 if fp32 else torch.bfloat16
+        cache = st5.DecoderCache(*(t.to(cdt) for t in init))
+        result["grid_kernel"]["cache_dtype"] = str(cdt).replace("torch.", "")
+        for mode, tree in trees.items():
+            entry = ("tts_decode_step_int8" if mode == "int8" else "tts_decode_step") + \
+                ("_fp32" if fp32 else "")
+            fn = getattr(lib, entry)
+            fw = ts.pack_fused_weights(tree, cfg)
+            plan = ts.step_plan(B, D, F, mode == "int8", grid)
+            for pname, pos in positions.items():
+                ts._check_step_args(fw, x, cache, pos, enc_mask)
+                key = f"{mode}_{pname}"
+                if n == "whole":
+                    step = lambda fw=fw, fn=fn, plan=plan, pos=pos: ts._launch(
+                        fn, fw, cfg, x, cache, pos, enc_mask, plan)
+                    result["grid_kernel"][key] = {"graph_us": _time_us(step),
+                                                  "eager_us": _eager_us(step)}
+                    continue
+                tr = torch.zeros((grid, 8 * Lyr + 1, 8), dtype=torch.int64, device="cuda")
+                for _ in range(3):
+                    ts._launch(fn, fw, cfg, x, cache, pos, enc_mask, plan, trace=tr)
+                torch.cuda.synchronize()
+                summary = trace_summary(tr.cpu(), Lyr)
+                result["grid_kernel"][f"trace_{key}"] = {
+                    "by_kind": trace_rollup(summary, Lyr), "by_phase": summary}
+    if cluster_procs:  # the cluster kernel (fp32 caches): its ablations, its trace
+        result["cluster_kernel"] = {"us": {}}
+        pos = positions[f"pos{TINY_TIMED_POS}"]
+        for n, proc in cluster_procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for cluster variant {n}:\n{log}")
+            lib = ctypes.CDLL(os.path.join(out_dir, f"libtts_cluster_{n}.so"))
+            for mode, tree in trees.items():
+                fn = getattr(lib, "tts_decode_step_int8_fp32" if mode == "int8"
+                             else "tts_decode_step_fp32")
+                fw = ts.pack_fused_weights(tree, cfg)
+                plan = ts.cluster_plan(B, D, F, Lyr, mode == "int8")
+                if n != "trace":
+                    cache = st5.DecoderCache(*(t.clone() for t in init))
+                    step = lambda fn=fn, fw=fw, plan=plan, cache=cache: ts._launch_cluster(
+                        fn, fw, cfg, x, cache, pos, enc_mask, plan)
+                    result["cluster_kernel"]["us"][f"{n}_{mode}"] = _time_us(step)
+                    if n == "whole":  # other cluster sizes and slot groups
+                        for csize, rows in CLUSTER_SHAPES:
+                            other = ts.cluster_plan(B, D, F, Lyr, mode == "int8", csize, rows)
+                            step = lambda fn=fn, fw=fw, plan=other, cache=cache: \
+                                ts._launch_cluster(fn, fw, cfg, x, cache, pos, enc_mask, plan)
+                            result["cluster_kernel"]["us"][
+                                f"whole_{mode}_c{csize}_r{rows}"] = _time_us(step)
+                    continue
+                tr = torch.zeros((plan["clusters"] * plan["csize"], 8 * Lyr + 1, 8),
+                                 dtype=torch.int64, device="cuda")
+                for _ in range(3):
+                    ts._launch_cluster(fn, fw, cfg, x, cache32, pos, enc_mask, plan, trace=tr)
+                torch.cuda.synchronize()
+                summary = trace_summary(tr.cpu(), Lyr)
+                result["cluster_kernel"][f"trace_{mode}"] = {
+                    "by_kind": cluster_rollup(summary, Lyr), "by_phase": summary}
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("tts_step_ablate: no CUDA device", file=sys.stderr)
         return 1
+    if "--tiny-real" in sys.argv[1:]:
+        return tiny_real_main()
     out_dir = os.path.join(build.BUILD_DIR, "ablate")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(build.CSRC_DIR, "tts_step.cu")

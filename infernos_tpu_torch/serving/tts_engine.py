@@ -25,11 +25,13 @@ config's type, as in the reference: a ``GriffinLimConfig`` vocodes with
 ``audio/griffinlim.py`` (the tiny-real default), a ``HifiGanConfig`` with
 ``models/hifigan.py``.
 
-An engine takes any number of slots, as the reference does.  On the card
-one step kernel launch takes at most ``ops.tts_step.MAX_B`` slots, so a
-step of more slots is one launch per group of at most ``MAX_B``
-(``ops.tts_step.run_groups``); a CUDA engine of no slots is refused at
-construction (:func:`check_slots`).
+An engine takes any number of slots, as the reference does.  On the card,
+over bf16 caches one step kernel launch takes at most
+``ops.tts_step.MAX_B`` slots, so a step of more slots is one launch per
+group of at most ``MAX_B`` (``ops.tts_step.run_groups``); over fp32
+caches (the tiny and tiny-real engines) every step is one launch of the
+cluster kernel; a CUDA engine of no slots is refused at construction
+(:func:`check_slots`).
 """
 
 from __future__ import annotations

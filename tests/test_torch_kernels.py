@@ -22,7 +22,11 @@ and mixed dtypes are refused.  The decoder step over fp32 caches, with
 bf16 and with int8 weights, is held to the plain step over the same fp32
 caches within the bf16 caches' 3e-2: the weights and the kernel's rounding
 of x to bf16 before each product are the same in both cache modes, and
-only the cache rows are exact now.
+only the cache rows are exact now.  That mode's kernel (one thread-block
+cluster per group of at most 8 slots, ``csrc/tts_step_cluster.cu``) is
+also held at the tiny-real engine's shape on its trained weights, at
+SpeechT5's full width, at 40 and 48 slots (one launch), over chained
+steps, and to itself under a CUDA-graph capture.
 Tolerances: bf16 outputs of attention, 1e-2 absolute plus two bf16 steps
 (2^-6) relative: the plain version computes in fp32 from the same bf16
 inputs, and a short masked row's output is as large as a V entry; fp32
@@ -502,9 +506,9 @@ def test_kernel_attention_fp32_gradients_match_fp32_autograd_of_plain(card, mask
 @pytest.mark.parametrize("mask_kind", ["null", "ragged"])
 def test_decode_step_fp32_caches_kernel_cases(card, mode, B, pos_kind, mask_kind):
     """The fp32-cache modes (bf16 or int8 weights over fp32 caches): one
-    launch per group of 32 slots, counted in its own mode, against the plain
-    step over the same fp32 caches; rows other than pos and the cross caches
-    untouched, bit for bit."""
+    launch of the cluster kernel at any slot count, counted in its own mode,
+    against the plain step over the same fp32 caches; rows other than pos
+    and the cross caches untouched, bit for bit."""
     T, S = 16, 8
     cfg, fw, init, g = _step_setup(card, B, mode == "int8", T, S, seed=4, cdt=torch.float32)
     ck, cp = _cache(init), _cache(init)
@@ -520,7 +524,7 @@ def test_decode_step_fp32_caches_kernel_cases(card, mode, B, pos_kind, mask_kind
     hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
     torch.cuda.synchronize()
     moved = [getattr(ts.fused_decode_step, c) - b for c, b in zip(counters, before)]
-    n = ts.launches_per_step(B)
+    n = ts.launches_per_step(B, fp32_caches=True)
     assert moved == ([0, 0, 0, n] if mode == "int8" else [0, 0, n, 0])
     assert hk.dtype == torch.float32 and ck.self_k.dtype == torch.float32
     torch.testing.assert_close(hk, hp, atol=3e-2, rtol=0)
@@ -540,3 +544,121 @@ def test_decode_step_kernel_refuses_mixed_cache_dtypes(card):
     pos = torch.zeros(2, dtype=torch.long, device=card)
     with pytest.raises(ValueError, match="share one dtype"):
         ts.fused_decode_step(None, cfg, x, cache, pos, packed=fw)
+
+
+STEP_COUNTERS = ("launches", "launches_int8", "launches_fp32", "launches_int8_fp32")
+
+
+def _chained_fp32_steps(card, cfg, fw, g, B, T, S, pos0, lens, steps):
+    """``steps`` chained steps of the cluster kernel and of the plain step
+    from the same random fp32 caches (pos advancing, caches carried over),
+    x fp32 on even steps and bf16 on odd ones: the hidden state within 3e-2
+    (and one bf16 rounding for bf16 x), the rows written within 3e-2, every
+    other row and the cross caches untouched, one launch a step in the
+    mode's own counter."""
+    Lyr, H = cfg.decoder_layers, cfg.decoder_attention_heads
+    init = [torch.randn((Lyr, B, H, t, 64), generator=g, device=card) for t in (T, T, S, S)]
+    ck, cp = _cache(init), _cache(init)
+    enc_mask = torch.arange(S, device=card)[None] < torch.tensor(lens, device=card)[:, None]
+    counter = "launches_int8_fp32" if ts.is_int8(fw) else "launches_fp32"
+    written = torch.zeros((B, T), dtype=torch.bool, device=card)
+    for it in range(steps):
+        pos = torch.tensor(pos0, device=card) + it
+        x = torch.randn((B, 1, cfg.hidden_size), generator=g, device=card)
+        x = x if it % 2 == 0 else x.to(torch.bfloat16)
+        before = [getattr(ts.fused_decode_step, c) for c in STEP_COUNTERS]
+        hk = ts.fused_decode_step(None, cfg, x, ck, pos, enc_mask, packed=fw)
+        hp = ts._plain_decode_step(fw, cfg, x, cp, pos, enc_mask)
+        torch.cuda.synchronize()
+        moved = {c: getattr(ts.fused_decode_step, c) - b
+                 for c, b in zip(STEP_COUNTERS, before)}
+        assert moved == {c: int(c == counter) for c in STEP_COUNTERS}
+        assert hk.dtype == x.dtype and hk.shape == (B, 1, cfg.hidden_size)
+        rtol = 2 ** -7 if x.dtype == torch.bfloat16 else 0
+        torch.testing.assert_close(hk.float(), hp.float(), atol=3e-2, rtol=rtol)
+        written[torch.arange(B, device=card), pos.clamp(max=T - 1)] = True
+    torch.testing.assert_close(ck.self_k, cp.self_k, atol=3e-2, rtol=0)
+    torch.testing.assert_close(ck.self_v, cp.self_v, atol=3e-2, rtol=0)
+    for i, n in enumerate(("self_k", "self_v")):
+        assert torch.equal(getattr(ck, n).permute(1, 3, 0, 2, 4)[~written],
+                           init[i].permute(1, 3, 0, 2, 4)[~written])
+    assert torch.equal(ck.cross_k, init[2]) and torch.equal(ck.cross_v, init[3])
+
+
+def _tiny_real_fw(card, mode):
+    from infernos_tpu_torch.models import tiny_real
+    from infernos_tpu_torch.models.quant import quantize_params
+
+    params, cfg = tiny_real.load_tiny_tts("gl", card)[:2]
+    fw = ts.pack_fused_weights(quantize_params(params) if mode == "int8" else params, cfg)
+    assert ts.is_int8(fw) == (mode == "int8")
+    return cfg, fw
+
+
+TINY_POS0 = [0, 169, 1, 80, 100, 37, 150, 7]  # chip_smoke.tiny_real_steps' positions
+TINY_LENS = [48, 1, 20, 48, 7, 33, 48, 12]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_cluster_step_at_the_tiny_real_shape_on_its_weights(card, mode):
+    """The tiny-real TTS engine's step (8 slots, T 170, S 48, D 256, 4
+    heads, F 768, 3 layers) on the trained weights, four chained steps."""
+    cfg, fw = _tiny_real_fw(card, mode)
+    g = torch.Generator(device=card).manual_seed(11)
+    _chained_fp32_steps(card, cfg, fw, g, 8, 170, 48, TINY_POS0, TINY_LENS, 4)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_cluster_step_at_full_width(card, mode):
+    """SpeechT5's full width (D 768, 12 heads, F 3072, 6 layers), 8 slots,
+    T 512, S 96, random weights with the LayerNorms' affine part drawn:
+    two chained steps."""
+    from infernos_tpu_torch.models.quant import quantize_params
+
+    cfg = st5.SpeechT5Config()
+    g = torch.Generator(device=card).manual_seed(12)
+    params = st5.init_params(cfg, g, card, torch.bfloat16)
+    for n in ("ln1", "ln2", "ln3"):
+        ln = params["dec_layers"][n]
+        ln["g"] = 1 + 0.1 * torch.randn(ln["g"].shape, generator=g, device=card)
+        ln["b"] = 0.1 * torch.randn(ln["b"].shape, generator=g, device=card)
+    fw = ts.pack_fused_weights(quantize_params(params) if mode == "int8" else params, cfg)
+    _chained_fp32_steps(card, cfg, fw, g, 8, 512, 96, [0, 511, 1, 255, 100, 37, 400, 7],
+                        [96, 1, 50, 96, 17, 80, 96, 33], 2)
+
+
+@pytest.mark.parametrize("B", [40, 48])
+def test_cluster_step_at_40_and_48_slots(card, B):
+    """Five and six clusters of one launch, at the tiny-real shape."""
+    cfg, fw = _tiny_real_fw(card, "bf16")
+    g = torch.Generator(device=card).manual_seed(13 + B)
+    pos0 = [0, 169] + [(37 * i) % 168 for i in range(B - 2)]
+    lens = [48, 1] + [(7 * i) % 48 + 1 for i in range(B - 2)]
+    _chained_fp32_steps(card, cfg, fw, g, B, 170, 48, pos0, lens, 2)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_cluster_step_is_deterministic_and_graph_replays_it(card, mode):
+    """Two eager calls give the same bits, and so does the call captured in
+    a CUDA graph and replayed (a cluster launch captures as a launch)."""
+    cfg, fw = _tiny_real_fw(card, mode)
+    g = torch.Generator(device=card).manual_seed(14)
+    B, T, S = 8, 170, 48
+    init = [torch.randn((3, B, 4, t, 64), generator=g, device=card) for t in (T, T, S, S)]
+    pos = torch.tensor(TINY_POS0, device=card)
+    enc_mask = torch.arange(S, device=card)[None] < torch.tensor(TINY_LENS, device=card)[:, None]
+    x = torch.randn((B, 1, 256), generator=g, device=card)
+    step = lambda c: ts.fused_decode_step(None, cfg, x, c, pos, enc_mask, packed=fw)
+    c1, c2, c3 = _cache(init), _cache(init), _cache(init)
+    h1, h2 = step(c1), step(c2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        h3 = step(c3)
+    graph.replay()
+    torch.cuda.synchronize()
+    for h in (h2, h3):
+        assert torch.equal(h, h1)
+    for c in (c2, c3):
+        assert torch.equal(c.self_k, c1.self_k) and torch.equal(c.self_v, c1.self_v)
