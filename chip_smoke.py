@@ -493,13 +493,17 @@ def phase_attention(torch, attn):
 
 def phase_attention_fp32(torch, attn):
     """Kernel 1's fp32 mode against its plain version in fp32, relative L2
-    within ``ATTN_FP32_REL_TOL``: whisper-large-v3's ``[20, 1500, 64]`` and
-    the tiny-real encoder's ``[B * 4, S, 64]`` (S 100 and 250, off the
-    64-key tile grid), masked and not, then the tiny-real ``[B, S, 256]``
-    call with heads read in place.  Every ``[BH, S, 64]`` case is timed:
-    ``ms`` (graph replay), ``eager_ms``, the plain version's and
+    within ``ATTN_FP32_REL_TOL``.  Timed, masked and not: whisper-large-v3's
+    ``[20, 1500, 64]``, the tiny-real encoder's ``[B * 4, S, 64]`` (S 100
+    and 250, off the 64-key tile grid) and the tiny STT trainer's ``[32,
+    250, 64]``: ``ms`` (graph replay), ``eager_ms``, the plain version's and
     ``scaled_dot_product_attention``'s on the same fp32 inputs, and the
-    bound at the card's fp32 rate."""
+    bound at the card's fp32 rate, each beside its launch plan
+    (``attention.fp32_plan``).  Held, not timed: a shape at each branch of
+    the plan (no split, a cluster of 2, 4 and 8, each block shape, S of 1,
+    63, 65 and 129), key masks whose last 64-key tile is masked
+    whole for some batch rows, and the tiny-real ``[B, S, 256]`` call with
+    heads read in place."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -516,34 +520,62 @@ def phase_attention_fp32(torch, attn):
               f"fp32 attention kernel {what}: relative L2 error {err}")
         return err, (got - want).abs().max().item()
 
+    def plan_of(BH, S):
+        plan = attn.fp32_plan(BH, S)
+        return {k: plan[k] for k in ("rows", "x", "split", "blocks")}
+
+    def lengths(BH, S, whole_tile: bool):
+        lens = torch.randint(S // 2, S + 1, (BH,), generator=g, device="cuda")
+        if whole_tile:  # every other row keeps no key of the last tile
+            lens[::2] = max(1, (S - 1) // 64 * 64 - 1)
+        return torch.where(torch.arange(S, device="cuda")[None] < lens[:, None], 0.0,
+                           attn.NEG_INF)
+
+    def held(BH, S, mask):
+        q, k, v = rnd(BH, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
+        zeros = torch.zeros((BH, S), device="cuda")
+        before = attn.fused_attention.launches
+        kern = lambda: attn._kernel_attention(q, k, v, mask)  # noqa: E731
+        rel, mae = rel_err(f"[{BH}, {S}, 64] masked={mask is not None} {plan_of(BH, S)}",
+                           kern(), attn._plain_attention(q, k, v, zeros if mask is None else mask))
+        check(attn.fused_attention.launches == before,
+              "fp32 attention: the bf16 kernel's count moved")
+        return q, k, v, zeros, kern, rel, mae
+
     cases = []
-    for BH, S in ((20, 1500), (4, 100), (4, 250), (8, 250)):
+    for BH, S in ((20, 1500), (4, 100), (4, 250), (8, 250), (32, 250)):
         for masked in (False, True):
-            q, k, v = rnd(BH, S, Dh), rnd(BH, S, Dh), rnd(BH, S, Dh)
-            zeros = torch.zeros((BH, S), device="cuda")
-            mask = None
-            if masked:
-                lens = torch.randint(S // 2, S + 1, (BH,), generator=g, device="cuda")
-                mask = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
-                                   0.0, attn.NEG_INF)
-            before = attn.fused_attention.launches
-            kern = lambda: attn._kernel_attention(q, k, v, mask)
-            rel, mae = rel_err(f"[{BH}, {S}, 64] masked={masked}", kern(),
-                               attn._plain_attention(q, k, v, zeros if mask is None else mask))
-            check(attn.fused_attention.launches == before,
-                  "fp32 attention: the bf16 kernel's count moved")
+            mask = lengths(BH, S, False) if masked else None
+            q, k, v, zeros, kern, rel, mae = held(BH, S, mask)
             q4, k4, v4 = (t[None] for t in (q, k, v))  # [1, BH, S, Dh]
             m4 = None if mask is None else mask[None, :, None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)  # noqa: E731
             bms, by = bound_ms(4 * BH * S * Dh * 4 + (BH * S * 4 if masked else 0),
                                4.0 * BH * S * S * Dh, PEAK_FP32_FLOPS)
             cases.append({
-                "BH": BH, "S": S, "masked": masked, "rel_l2_err": rel, "max_abs_err": mae,
+                "BH": BH, "S": S, "masked": masked, "plan": plan_of(BH, S),
+                "rel_l2_err": rel, "max_abs_err": mae,
                 "ms": graph_ms(kern, 20), "eager_ms": cuda_ms(kern, 20),
                 "plain_ms": cuda_ms(lambda: attn._plain_attention(
                     q, k, v, zeros if mask is None else mask), 5),
                 "library_ms": graph_ms(sdpa, 20), "library_eager_ms": cuda_ms(sdpa, 20),
                 "bound_ms": bms, "bound_by": by})
+    # each branch of the plan, and masks that leave some rows no key of the
+    # last tile, held to the plain version
+    branches = [(32, 250), (4, 100), (1, 600), (1, 450), (6, 1), (6, 63), (6, 65), (6, 129),
+                (8, 250)]
+    seen = set()
+    for BH, S in branches:
+        plan = plan_of(BH, S)
+        seen |= {("split", plan["split"]), ("shape", plan["rows"], plan["x"])}
+        for mask in (None, lengths(BH, S, True)):
+            rel, mae = held(BH, S, mask)[5:]
+            cases.append({"BH": BH, "S": S, "masked": mask is not None,
+                          "last_tile_masked": mask is not None, "plan": plan,
+                          "rel_l2_err": rel, "max_abs_err": mae})
+    want = ({("split", c) for c in attn.FP32_SPLITS}
+            | {("shape", *rx) for rx in attn.FP32_SHAPES})
+    check(want <= seen, f"fp32 attention: branches of the plan not held: {want - seen}")
     # the tiny-real encoder's own call: [B, S, 4 * 64] read in place, a key
     # mask per utterance
     q, k, v = rnd(2, 250, 4 * Dh), rnd(2, 250, 4 * Dh), rnd(2, 250, 4 * Dh)
@@ -552,20 +584,20 @@ def phase_attention_fp32(torch, attn):
                        attn.fused_attention(q, k, v, n_heads=4, mask=mask),
                        attn.by_heads(attn._plain_attention, q, k, v, n_heads=4, mask=mask))
     cases.append({"B": 2, "S": 250, "heads": 4, "masked": True, "layout": "[B, S, D]",
-                  "rel_l2_err": rel, "max_abs_err": mae})
+                  "plan": plan_of(8, 250), "rel_l2_err": rel, "max_abs_err": mae})
     main = cases[0]  # [20, 1500, 64], no mask
     emit("kernel_attention_fp32", rel_tol=ATTN_FP32_REL_TOL, cases=cases,
          bound_us=main["bound_ms"] * 1e3)
+    small = [c for c in cases if c.get("BH") in (4, 8, 32) and "ms" in c]
     return {"name": "encoder_attention_fp32", "route": "cuda",
-            "source": "infernos_tpu_torch/csrc/attention.cu",
+            "source": "infernos_tpu_torch/csrc/attention_fp32.cu",
             "replaces": "infernos_tpu/ops/attention.py:53 (fp32 inputs)",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "rel_l2_err": max(c["rel_l2_err"] for c in cases),
-            "tiny_real_ms": {f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c["ms"]
-                             for c in cases if c.get("BH") in (4, 8)},
-            "tiny_real_bound_ms": {
-                f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c["bound_ms"]
-                for c in cases if c.get("BH") in (4, 8)},
+            **{f"tiny_real_{k}": {f"[{c['BH']}, {c['S']}, 64] masked={c['masked']}": c[k]
+                                  for c in small}
+               for k in ("ms", "eager_ms", "bound_ms", "library_ms")},
+            "tiny_real_plan": {f"[{c['BH']}, {c['S']}, 64]": c["plan"] for c in small},
             **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library_eager_ms")}}
 

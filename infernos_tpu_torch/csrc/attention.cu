@@ -1,5 +1,5 @@
-// Encoder self-attention forward for Hopper (sm_90a): a bf16 mode (bf16
-// in and out, fp32 math) and an fp32 mode (fp32 throughout, below).
+// Encoder self-attention forward for Hopper (sm_90a): the bf16 mode (bf16
+// in and out, fp32 math).  The fp32 mode is csrc/attention_fp32.cu.
 //
 // Replaces infernos_tpu/ops/attention.py::_attn_kernel (the Pallas block-q
 // kernel behind fused_attention, called from whisper.encode), which takes
@@ -444,232 +444,6 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- fp32 mode
-// The same function for fp32 q, k, v and an fp32 output (the mode of
-// _attn_kernel that the tiny and tiny-real encoders and the trainers run on
-// the TPU, where the kernel takes its dtype from q).  Logits, softmax and
-// both products are full fp32 FFMAs on the CUDA cores: TF32 keeps about
-// three digits and is no fp32 mode.  One head's fp32 K at S 1500 is
-// 384 KB, more than a block may hold, so the TPU's whole-K schedule does
-// not carry over: this is an online softmax over K/V tiles of 64 keys.
-//
-// Bound on an H100 SXM: the same 4 * S^2 * 64 operations a head as the
-// bf16 mode, at the 67 TFLOP/s of fp32 outside the tensor cores: 0.17 ms
-// for 20 heads at S 1500 (11.5 GFLOP), against 30.7 MB of fp32 q, k, v, o
-// (9.2 us).  Compute-bound; a first design that is right, not tuned.
-//
-// Design:
-// - a block is 128 threads (16 x 8) and owns 64 q rows of one (batch,
-//   head); thread (ty, tx) owns rows ty + 16 i (i < 4) of the block, and
-//   keys tx + 8 j (j < 8) of a tile for the scores, output dims 4 tx..4 tx
-//   + 3 and 32 + 4 tx..32 + 4 tx + 3 for the output: 32 scores and 32
-//   output accumulators in registers;
-// - Q, K rows lie in shared memory with a stride of 68 floats, so the
-//   float4 reads of 4 rows (8 keys) a thread makes hit distinct banks;
-//   V rows keep their 64; P goes through shared memory (stride 68) from
-//   the threads of the scores to those of the output;
-// - K/V tiles are copied by 16-byte cp.async, two stages deep, one
-//   __syncthreads a stage, the next tile's copy started right after it;
-//   keys >= S are zero-filled and get -inf from the mask row, rows >= S
-//   are computed on zero Q and never stored;
-// - the softmax is exact fp32 in base 2 (log2(e) folded into the scale
-//   and the mask): the row max over a tile by three shuffles among the 8
-//   threads of a row, O and the row sum rescaled whenever the max moves.
-namespace f32 {
-constexpr int BQ = 64;        // q rows per block
-constexpr int KT = 64;        // keys per staged tile
-constexpr int NT = 128;       // threads per block: 16 row groups x 8
-constexpr int LD = DH + 4;    // padded row of Q, K and P (floats)
-constexpr int Q_FLOATS = BQ * LD;
-constexpr int P_FLOATS = BQ * LD;
-constexpr int K_FLOATS = KT * LD;
-constexpr int V_FLOATS = KT * DH;
-constexpr int STAGE_FLOATS = K_FLOATS + V_FLOATS + KT;  // K, V, mask row
-constexpr int SMEM_BYTES = (Q_FLOATS + P_FLOATS + 2 * STAGE_FLOATS) * 4;
-}  // namespace f32
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-__device__ __forceinline__ void axpy4(float p, const float4 v, float* o) {
-  o[0] = fmaf(p, v.x, o[0]);
-  o[1] = fmaf(p, v.y, o[1]);
-  o[2] = fmaf(p, v.z, o[2]);
-  o[3] = fmaf(p, v.w, o[3]);
-}
-
-// two blocks per SM: 100.5 KB of shared memory each
-__global__ void __launch_bounds__(f32::NT, 2)
-attn_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ mask,
-                     float* __restrict__ o, Strides sq, Strides sk, Strides sv,
-                     Strides so, int H, int S, float scale_log2) {
-  constexpr int BQ = f32::BQ, KT = f32::KT, NT = f32::NT, LD = f32::LD;
-  constexpr int Q_FLOATS = f32::Q_FLOATS, P_FLOATS = f32::P_FLOATS;
-  constexpr int K_FLOATS = f32::K_FLOATS, V_FLOATS = f32::V_FLOATS;
-  constexpr int STAGE_FLOATS = f32::STAGE_FLOATS;
-  extern __shared__ float4 smem_f4[];
-  float* Qs = reinterpret_cast<float*>(smem_f4);
-  float* Ps = Qs + Q_FLOATS;
-  float* stages = Ps + P_FLOATS;
-  const uint32_t stages_s = static_cast<uint32_t>(__cvta_generic_to_shared(stages));
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const float* mb = mask ? mask + (size_t)b * S : nullptr;
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-
-  // a tile of 64 rows is 1,024 16-byte chunks: 8 a thread, chunk tid + 128 u
-  // is chunk (c & 15) of row c >> 4
-  auto load_tile = [&](int st, int k0) {
-    const uint32_t base = stages_s + st * STAGE_FLOATS * 4;
-#pragma unroll
-    for (int u = 0; u < KT * DH / 4 / NT; ++u) {
-      const int c = tid + u * NT, r = c >> 4, c4 = (c & 15) * 4;
-      const bool ok = k0 + r < S;
-      cp_async16(base + (r * LD + c4) * 4, ok ? kb + (long long)(k0 + r) * sk.r + c4 : kb,
-                 ok);
-      cp_async16(base + (K_FLOATS + r * DH + c4) * 4,
-                 ok ? vb + (long long)(k0 + r) * sv.r + c4 : vb, ok);
-    }
-    if (tid < KT) {
-      float* ms = stages + st * STAGE_FLOATS + K_FLOATS + V_FLOATS;
-      ms[tid] = k0 + tid < S ? (mb ? mb[k0 + tid] * LOG2E : 0.f) : -INFINITY;
-    }
-  };
-
-  const uint32_t qs_s = static_cast<uint32_t>(__cvta_generic_to_shared(Qs));
-#pragma unroll
-  for (int u = 0; u < BQ * DH / 4 / NT; ++u) {
-    const int c = tid + u * NT, r = c >> 4, c4 = (c & 15) * 4;
-    const bool ok = q0 + r < S;
-    cp_async16(qs_s + (r * LD + c4) * 4, ok ? qb + (long long)(q0 + r) * sq.r + c4 : qb, ok);
-  }
-  load_tile(0, 0);
-  cp_async_commit();
-
-  float oacc[4][8], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) oacc[i][e] = 0.f;
-  }
-
-  const int n_tiles = (S + KT - 1) / KT;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
-    cp_async_wait_all();
-    // tile `it` has landed for every thread, and every thread is done with
-    // the other stage and with P, so both may be written again
-    __syncthreads();
-    if (it + 1 < n_tiles) {
-      load_tile(st ^ 1, (it + 1) * KT);
-      cp_async_commit();
-    }
-    const float* Ks = stages + st * STAGE_FLOATS;
-    const float* Vs = Ks + K_FLOATS;
-    const float* Ms = Vs + V_FLOATS;
-
-    // S = Q K^T for rows ty + 16 i and keys tx + 8 j
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qa[4], ka[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = dot4(qa[i], ka[j], s[i][j]);
-    }
-
-    // online softmax in base 2; the 8 threads of a row are lanes 8 apart
-    // in tx, so three shuffles give the row's max and, at the end, its sum
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = fmaf(s[i][j], scale_log2, Ms[tx + 8 * j]);
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // key it * 64 is a real key of every row, so the max is finite
-      // from the first tile on and exp2f(-inf - mn) is a clean 0
-      const float mn = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - mn);
-      m[i] = mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = exp2f(s[i][j] - mn);
-        sum += p;
-        Ps[(ty + 16 * i) * LD + tx + 8 * j] = p;
-      }
-      l[i] = l[i] * alpha + sum;  // this thread's share; summed at the end
-#pragma unroll
-      for (int e = 0; e < 8; ++e) oacc[i][e] *= alpha;
-    }
-    __syncthreads();  // P written
-
-    // O += P V for rows ty + 16 i and dims 4 tx.., 32 + 4 tx..
-#pragma unroll 2
-    for (int kk = 0; kk < KT; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LD + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 va = *reinterpret_cast<const float4*>(Vs + (kk + u) * DH + 4 * tx);
-        const float4 vc = *reinterpret_cast<const float4*>(Vs + (kk + u) * DH + 32 + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y : u == 2 ? pa[i].z : pa[i].w;
-          axpy4(p, va, oacc[i]);
-          axpy4(p, vc, oacc[i] + 4);
-        }
-      }
-    }
-  }
-
-  float* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = q0 + ty + 16 * i;
-    if (row < S) {
-      const float inv = 1.f / li;
-      float* orow = ob + (long long)row * so.r;
-      *reinterpret_cast<float4*>(orow + 4 * tx) =
-          make_float4(oacc[i][0] * inv, oacc[i][1] * inv, oacc[i][2] * inv, oacc[i][3] * inv);
-      *reinterpret_cast<float4*>(orow + 32 + 4 * tx) =
-          make_float4(oacc[i][4] * inv, oacc[i][5] * inv, oacc[i][6] * inv, oacc[i][7] * inv);
-    }
-  }
-}
-
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) of q, k, v and o in turn;
@@ -688,24 +462,5 @@ extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v,
   attn_fwd_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
       (bf16*)o, st[0], st[1], st[2], st[3], H, S, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-// The fp32 mode: the same arguments, fp32 q, k, v and o (rows and batches
-// 16-byte aligned: strides multiples of 4 elements).
-extern "C" int attn_fwd_fp32(const void* q, const void* k, const void* v,
-                             const void* mask, void* o,
-                             const long long* strides, int B, int H, int S,
-                             float scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return 0;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_fwd_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      f32::SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  const Strides* st = reinterpret_cast<const Strides*>(strides);
-  dim3 grid((S + f32::BQ - 1) / f32::BQ, B * H);
-  attn_fwd_fp32_kernel<<<grid, f32::NT, f32::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)mask,
-      (float*)o, st[0], st[1], st[2], st[3], H, S, scale * LOG2E);
   return (int)cudaGetLastError();
 }

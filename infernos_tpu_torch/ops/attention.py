@@ -1,7 +1,8 @@
 """Encoder self-attention: the CUDA kernel and its plain PyTorch version.
 
 ``fused_attention`` keeps the reference's signature and ``[B, S, D]``
-layout.  On a CUDA tensor it launches ``csrc/attention.cu`` (the port of
+layout.  On a CUDA tensor it launches ``csrc/attention.cu`` or
+``csrc/attention_fp32.cu`` (the ports of
 ``infernos_tpu/ops/attention.py::_attn_kernel``) or raises; on a CPU tensor
 it runs :func:`_plain_attention`, the math of the reference's
 ``_xla_attention``.  There is no fallback from the kernel to the plain path.
@@ -9,16 +10,24 @@ it runs :func:`_plain_attention`, the math of the reference's
 Two modes, as the Pallas kernel takes the dtype of q: bf16 q, k, v go to
 ``attn_fwd_bf16`` (``wgmma``, the full-width encoders), fp32 ones to
 ``attn_fwd_fp32`` (full fp32 FFMAs, the tiny and tiny-real encoders and the
-trainers).  q, k and v of mixed dtypes raise; nothing is cast to reach a
-kernel.  Each mode counts its own launches (``fused_attention.launches``
-and ``.launches_fp32``).
+trainers; a library of its own).  q, k and v of mixed dtypes raise; nothing
+is cast to reach a kernel.  Each mode counts its own launches
+(``fused_attention.launches`` and ``.launches_fp32``).
+
+The fp32 mode runs at small shapes (``[4|8, 100|250, 64]`` a tiny-real
+encode, ``[32, 250, 64]`` a trainer step), where q tiles of 64 rows leave
+most of the card idle.  :func:`fp32_plan` picks, from the shape, the q rows
+a block owns, the threads a row, and how many blocks of a thread-block
+cluster split the key tiles (their partial softmax merged in distributed shared memory); the
+wrapper hands the plan to the kernel as integers.
 
 The kernel takes strides, so it reads each head's 64 columns out of the
 ``[B, S, D]`` projections and writes them into a ``[B, S, D]`` output: one
 launch per call and no other work on the card.
 
 Both modes are compute-bound at whisper-large-v3 width (see the source
-notes in ``csrc/attention.cu``): 11.5 GFLOP per call, 32 calls per encode.
+notes in ``csrc/attention.cu`` and ``csrc/attention_fp32.cu``): 11.5 GFLOP
+per call, 32 calls per encode.
 
 Reverse mode, as the reference's ``custom_vjp`` has it: the forward is the
 kernel and the backward recomputes the plain attention and differentiates
@@ -42,6 +51,18 @@ NEG_INF = -1e9
 HEAD_DIM = 64  # the kernel's compile-time head dim
 _Strides = ctypes.c_longlong * 12  # (batch, head, row) of q, k, v and o
 _ENTRIES = {torch.bfloat16: "attn_fwd_bf16", torch.float32: "attn_fwd_fp32"}
+_LIBS = {torch.bfloat16: "attention", torch.float32: "attention_fp32"}
+
+# the fp32 kernel's launch plan (csrc/attention_fp32.cu reads it)
+FP32_KEYS = 64  # keys per staged tile
+# (rows, X): a block owns `rows` q rows, X threads a row
+FP32_SHAPES = ((64, 8), (32, 16), (16, 16))
+FP32_SPLITS = (1, 2, 4, 8)  # blocks of a cluster sharing a q tile
+FP32_TARGET_BLOCKS = 120  # about one block on each of an H100's 132 SMs
+SMEM_MAX = 232448  # dynamic shared memory one block may ask for
+_LD = HEAD_DIM + 4  # Q/K/partial-O rows (floats); P rows are HEAD_DIM + X
+_STAGE_BYTES = (FP32_KEYS * _LD + FP32_KEYS * HEAD_DIM + FP32_KEYS) * 4  # K, V, mask row
+_GRID_MAX = 2 ** 31 - 1
 
 
 def _plain_attention(q, k, v, mask_add):
@@ -95,13 +116,109 @@ def _kernel_args(q, k, v, mask_add, n_heads):
     return B, S, strides
 
 
+def fp32_key_range(n_kt: int, split: int, rank: int):
+    """Block ``rank`` of a cluster of ``split``: its key tiles ``[t0, t1)``
+    of ``n_kt``, as the kernel computes them (none empty while split <= n_kt)."""
+    return rank * n_kt // split, (rank + 1) * n_kt // split
+
+
+def _fp32_candidates(n_kt: int) -> list:
+    """Every (rows, X, split) the kernel takes for ``n_kt`` key
+    tiles, in the order the plan tries them: splits of 1 and 2 before 4
+    before 8 (a wider cluster merges dearer), larger q tiles first (fewer
+    shared-memory reads per product)."""
+    order = [(1, 2), (4,), (8,)]
+    return [(r, x, c) for splits in order for r, x in FP32_SHAPES for c in splits
+            if c <= n_kt]
+
+
+def _fp32_choice(BH: int, S: int, n_kt: int) -> tuple:
+    """The first candidate that launches at least FP32_TARGET_BLOCKS blocks,
+    else the one with the most (of those the fewest rows)."""
+    cands = _fp32_candidates(n_kt)
+    blocks = [BH * -(-S // r) * c for r, _, c in cands]
+    for cand, n in zip(cands, blocks):
+        if n >= FP32_TARGET_BLOCKS:
+            return cand
+    return max(zip(cands, blocks), key=lambda cb: (cb[1], -cb[0][0]))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_plan(BH: int, S: int, rows: Optional[int] = None, x: Optional[int] = None,
+              split: Optional[int] = None) -> dict:
+    """The fp32 kernel's launch plan for ``BH`` heads of ``S`` rows (cached:
+    treat it as read-only).
+
+    A block of 128 threads owns ``rows`` q rows of one head, ``x`` threads
+    a row (:data:`FP32_SHAPES`); a cluster of ``split`` blocks
+    shares one q tile, block r taking key tiles :func:`fp32_key_range` (64
+    keys a tile).  Unless all three are given, the first of :func:`_fp32_candidates` that
+    launches at least :data:`FP32_TARGET_BLOCKS` blocks is taken, else the
+    one with the most blocks.  About one block an SM is the aim, not more:
+    the kernel is bound by each SM's shared-memory reads, which blocks
+    sharing an SM share, and every extra block or wider cluster adds loads
+    and merging (``ops/attention_ablate.py --fp32`` times the others).
+    Shared memory (byte offsets): Q ``rows x 68`` floats, P ``rows x (64 +
+    x)``, ``stages`` (two where a block has two tiles or more, else one) of
+    K ``64 x 68``, V ``64 x 64`` and a mask row, and, in a cluster, the
+    partials pushed by its blocks, ``rows x 68`` (64 of O, m, l).  Raises
+    ValueError for a shape it cannot hold: no rows or heads, a split past
+    the key tiles, a grid of more than 2^31 - 1 blocks."""
+    if BH < 1 or S < 1:
+        raise ValueError(f"fp32 attention kernel: no plan for {BH} heads of {S} rows")
+    n_kt = -(-S // FP32_KEYS)
+    if rows is None or x is None or split is None:
+        rows, x, split = _fp32_choice(BH, S, n_kt)
+    if (rows, x) not in FP32_SHAPES or split not in FP32_SPLITS or split > n_kt:
+        raise ValueError(f"fp32 attention kernel: no plan of {rows} rows ({x} threads a "
+                         f"row) and {split} blocks a cluster for S {S} ({n_kt} key tiles)")
+    n_qt = -(-S // rows)
+    blocks = BH * n_qt * split
+    if blocks > _GRID_MAX or S > _GRID_MAX - FP32_KEYS:
+        raise ValueError(f"fp32 attention kernel: {BH} heads of {S} rows need "
+                         f"{blocks} blocks, more than a grid holds")
+    stages = min(2, -(-n_kt // split))
+    sizes = {"q": rows * _LD * 4, "p": rows * (HEAD_DIM + x) * 4,
+             "stage": stages * _STAGE_BYTES,
+             "recv": rows * _LD * 4 if split > 1 else 0}
+    offsets, at = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = at
+        at += n
+    return {"BH": BH, "S": S, "rows": rows, "x": x, "split": split,
+            "n_kt": n_kt, "n_qt": n_qt, "blocks": blocks, "stages": stages,
+            "sizes": sizes, "offsets": offsets, "smem_bytes": at}
+
+
+def fp32_plan_ints(plan: dict) -> list:
+    """The plan as ``attn_fwd_fp32`` takes it."""
+    o = plan["offsets"]
+    return [plan[k] for k in ("rows", "x", "split", "stages")] + [
+        o["p"], o["stage"], o["recv"], plan["smem_bytes"]]
+
+
+_PlanInts = ctypes.c_int * 8
+
+
+@functools.lru_cache(maxsize=None)
+def _fp32_plan_arg(BH: int, S: int):
+    return _PlanInts(*fp32_plan_ints(fp32_plan(BH, S)))
+
+
+def entry_argtypes(dtype: torch.dtype) -> list:
+    """The C entry's argument types: pointers q, k, v, mask, o, strides; B,
+    H, S; scale; (fp32: the plan's ints;) stream."""
+    plan = [ctypes.c_void_p] if dtype == torch.float32 else []
+    return [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + plan + [
+        ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
-    """The library's C entry of ``dtype``'s mode, built at first use, with
+    """The C entry of ``dtype``'s mode, its library built at first use, with
     its argument types."""
-    fn = getattr(build.load("attention"), _ENTRIES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = getattr(build.load(_LIBS[dtype]), _ENTRIES[dtype])
+    fn.argtypes = entry_argtypes(dtype)
     fn.restype = ctypes.c_int
     return fn
 
@@ -114,10 +231,13 @@ def _kernel_attention(q, k, v, mask_add=None, *, n_heads: int = 1):
     additive (one row per batch element) or None.  Returns a contiguous
     ``[B, S, n_heads * 64]``.  With
     ``n_heads=1`` this is :func:`_plain_attention`'s ``[BH, S, Dh]``
-    contract.  Raises on anything the kernel does not take.  The output
+    contract.  Raises on anything the kernel does not take (in fp32, a
+    shape :func:`fp32_plan` cannot hold, before the device).  The output
     is in the inputs' dtype.
     """
     B, S, strides = _kernel_args(q, k, v, mask_add, n_heads)
+    fp32 = q.dtype == torch.float32
+    plan = (_fp32_plan_arg(B * n_heads, S),) if fp32 else ()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"attention kernel: {name} must be a CUDA "
@@ -130,9 +250,9 @@ def _kernel_attention(q, k, v, mask_add=None, *, n_heads: int = 1):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask_add is None else mask_add.data_ptr(),
             out.data_ptr(), _Strides(*strides), B, n_heads, S,
-            float(HEAD_DIM ** -0.5), stream)
+            float(HEAD_DIM ** -0.5), *plan, stream)
     build.check(rc, _ENTRIES[q.dtype])
-    if q.dtype == torch.float32:
+    if fp32:
         fused_attention.launches_fp32 += 1
     else:
         fused_attention.launches += 1

@@ -439,23 +439,31 @@ def _rel_l2(got, want):
     return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
-@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 250, 1500])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 129, 250, 450, 600, 1500])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("layout", ["bh", "bsd"])
-def test_attention_fp32_kernel_matches_plain(card, S, masked, layout):
+@pytest.mark.parametrize("BH", [6, 1, 4, 8, 32])
+def test_attention_fp32_kernel_matches_plain(card, S, masked, layout, BH):
     """The fp32 mode against the plain version in fp32: ``[BH, S, 64]`` and
-    ``[B, S, H * 64]`` thirds of one projection read in place, tile-edge S,
-    per-row key lengths; one fp32 launch, the bf16 count untouched."""
-    g = torch.Generator(device=card).manual_seed(7000 + S)
+    ``[B, S, H * 64]`` thirds of one projection read in place (4 heads,
+    ``B = BH / 4``, 2 for BH 6), tile-edge S, head counts and lengths that
+    reach every branch of ``fp32_plan`` (no split, clusters of 2, 4 and 8,
+    each block shape; the tiny-real ``[4|8, 100|250]`` and the
+    trainer's ``[32, 250]``), per-row key lengths with the first row's last
+    64-key tile masked whole; one fp32 launch, the bf16 count untouched; a
+    CUDA-graph replay gives the eager call's bits."""
+    g = torch.Generator(device=card).manual_seed(7000 + S + 31 * BH)
     if layout == "bh":
-        H, q, k, v = 1, *(torch.randn((6, S, 64), generator=g, device=card) for _ in range(3))
+        H, q, k, v = 1, *(torch.randn((BH, S, 64), generator=g, device=card)
+                          for _ in range(3))
     else:
-        H = 4
-        q, k, v = torch.randn((2, S, 3 * H * 64), generator=g, device=card).split(H * 64, -1)
+        H, B = 4, 2 if BH == 6 else max(1, BH // 4)
+        q, k, v = torch.randn((B, S, 3 * H * 64), generator=g, device=card).split(H * 64, -1)
     B = q.shape[0]
     mask_add = None
     if masked:
         lens = torch.randint(1, S + 1, (B,), generator=g, device=card)
+        lens[0] = max(1, (S - 1) // 64 * 64 - 1)  # no key of the last tile
         mask_add = torch.where(torch.arange(S, device=card)[None] < lens[:, None],
                                0.0, attn.NEG_INF)
     before = (attn.fused_attention.launches, attn.fused_attention.launches_fp32)
@@ -466,6 +474,14 @@ def test_attention_fp32_kernel_matches_plain(card, S, masked, layout):
     assert got.dtype == torch.float32 and got.shape == (B, S, H * 64)
     want = _plain_bsd(q, k, v, mask_add, H)
     assert _rel_l2(got, want) <= 1e-5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = attn._kernel_attention(q, k, v, mask_add, n_heads=H)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
 
 
 def test_attention_kernel_refuses_mixed_dtypes_on_the_card(card):

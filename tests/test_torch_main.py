@@ -9,7 +9,11 @@
   forked, answers a SIP OPTIONS, and exits 0 on SIGTERM; so does it with
   an ``ai_attendant`` profile (STT, TTS and LLM actors).
 Ports: SIP 25090-25093, RTP 35000-35800 (no other test file uses them;
-test_torch_boundaries.py takes SIP 25094 and RTP 35900-35990).
+test_torch_boundaries.py takes SIP 25094 and RTP 35900-35990).  The forked
+daemon outlives the test's process (it calls setsid), so the test kills it
+by its pid file on every way out, and asks OPTIONS until a deadline; should
+a daemon of an earlier, cut run still hold SIP 25092, it serves on the first
+free port of 25100-25109 instead (reserved for this file).
 """
 
 import os
@@ -88,6 +92,24 @@ def _port_free(port):
         s.close()
 
 
+def _free_sip_port(first, spare=range(25100, 25110)):
+    """``first`` if nothing holds it, else the first free port of ``spare``."""
+    return next(p for p in (first, *spare) if _port_free(p))
+
+
+def _options_until(port, timeout=60.0):
+    """The status code of the first SIP OPTIONS to 127.0.0.1:``port`` that is
+    answered (each ask waits 2 s), asking again until ``timeout``; None if
+    none is."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        code = cs.sip_options(("127.0.0.1", port))
+        if code is not None:
+            return code
+        time.sleep(0.5)
+    return None
+
+
 def _gone(pid, timeout=30.0):
     """Whether ``pid`` has exited (a zombie that no one reaps counts)."""
     deadline = time.monotonic() + timeout
@@ -163,23 +185,27 @@ def test_cpu_daemon_foreground_answers_and_stops(tmp_path):
 
 def test_cpu_daemon_forked_answers_and_stops(tmp_path):
     """The non-``-f`` path: the grandchild serves after the two forks."""
-    cfg = _config(tmp_path, 25092, 35400)
+    port = _free_sip_port(25092)
+    cfg = _config(tmp_path, port, 35400)
     log, pidf = tmp_path / "bg.log", tmp_path / "bg.pid"
-    proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch", "-t", "-L", str(log),
-                           "-i", str(pidf), str(cfg)], cwd=tmp_path,
-                          env=_env(INFERNOS_DEVICE="cpu"), timeout=120)
-    assert proc.returncode == 0
-    pid = None
     try:
+        proc = subprocess.run([sys.executable, "-m", "infernos_tpu_torch", "-t", "-L",
+                               str(log), "-i", str(pidf), str(cfg)], cwd=tmp_path,
+                              env=_env(INFERNOS_DEVICE="cpu"), timeout=120)
+        assert proc.returncode == 0
         _wait_log(log, "infernos_tpu_torch up")
         pid = int(pidf.read_text())
-        assert cs.sip_options(("127.0.0.1", 25092)) == 200
+        assert _options_until(port) == 200
         os.kill(pid, signal.SIGTERM)
-        assert _gone(pid), log.read_text()
+        assert _gone(pid, 60.0), log.read_text()
         assert "shutting down" in log.read_text()
     finally:
-        if pid is not None and not _gone(pid, 0.0):
-            os.kill(pid, signal.SIGKILL)
+        # the pid file is written before the daemon boots: a daemon left
+        # booting or serving by a failure above is killed here, not left
+        # holding its ports for the next run
+        left = pidf.read_text().strip() if pidf.exists() else ""
+        if left and not _gone(int(left), 0.0):
+            os.kill(int(left), signal.SIGKILL)
 
 
 def test_cpu_daemon_serves_an_ai_attendant_profile(tmp_path):
