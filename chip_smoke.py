@@ -26,7 +26,20 @@ Phases, each printing one JSON line:
                there), and at 40 and 48 slots (``wide``); then a
                tiny-real ``TTSEngine`` of 40 slots runs 6 ticks with 40
                sessions (``tts_wide_engine``, fp32 caches);
+   cross_i8 -- the int8-direct cross-attention kernel
+               (``kernel_cross_i8``, ``csrc/cross_attention_i8.cu``, the
+               port of the reference's XLA path
+               ``layers.cross_attention_step_i8``) vs its plain version on
+               the same tensors at S 1, 63 and 1500 and B * H of 1 and 320,
+               unmasked and with per-slot lengths (some slots empty), in
+               bf16 (and fp32 at the main shape); timed at ``[16, 20, 1500,
+               64]`` beside the dequantize path it replaces;
 5. stt      -- the STT engine at whisper-large-v3 width serves 4 requests;
+               then (``stt_cross_i8``) the same params in an engine with
+               ``cross_int8_direct=True`` serve them again: 32 launches of
+               the cross kernel per decode step; on the cache it left, one
+               step's logits within a bound of the dequantize path's, each
+               layer's kernel call held to the plain version;
 6. tts      -- the TTS engine at SpeechT5 + HiFi-GAN + AmendNet width
                streams 4 sessions to >= 1 s of audio each;
 7. turn     -- one translated turn per channel, four channels, through the
@@ -176,7 +189,8 @@ Phases, each printing one JSON line:
                through the port's loaders;
 32. launches -- the kernels and copies the card runs for one
                ``fused_attention`` call in each dtype (1), one
-               ``fused_decode_step`` call in each mode (1) and one
+               ``fused_decode_step`` call in each mode (1), one
+               ``cross_attention_i8`` call (1) and one
                ``whisper.encode``, counted with the profiler, last so that
                it slows nothing.
 
@@ -184,7 +198,8 @@ Then the ``{"kernels": [...]}`` line, a row per kernel mode with its
 launches by path, and, last, ``{"ok": true, ...}``.  The tiny and
 tiny-real engines and the trainers run the kernels' fp32 modes, the
 full-width engines the bf16 ones, as the reference does; every path is
-held to its modes (a launch of another mode fails it).
+held to its modes (a launch of another mode fails it), and only
+``stt_cross_i8`` may launch the int8-direct cross kernel.
 Weights are random, from fixed seeds, except in ``rtp_call``,
 ``sip_call``, ``llm_tiny``, ``aia_call``, ``lt_bench_tiny``,
 ``loopback``, ``aia_bench`` and ``echo``, which serve the vendored trained
@@ -209,6 +224,7 @@ as measurements.
 after the first of them (quick build-and-compare runs); ``--only benches``
 runs the bench phases, ``stt_ladder`` and ``ckpt_port`` alone after the
 build, and ``--phases a,b`` the named ones of them, ``remote_call``,
+``cross_i8`` (the kernel phase, ``stt`` and ``stt_cross_i8``),
 ``parallel``, ``examples`` or ``train``.
 They print no result line.
 """
@@ -275,18 +291,24 @@ def reset_launch_counts() -> None:
 
 
 # a path's kernel modes: kernel 1 in bf16 or fp32, and kernel 2 by (int8
-# weights, fp32 caches); the names of ``ops.launch_counts``
+# weights, fp32 caches); the names of ``ops.launch_counts``.  The int8-direct
+# cross-attention kernel (CROSS_KEY) runs only on a path that sets
+# ``STTEngineConfig.cross_int8_direct``
 ATTN_KEY = {False: "attention", True: "attention_fp32"}
 STEP_KEY = {(False, False): "bf16_step", (True, False): "int8_step",
             (False, True): "fp32_step", (True, True): "int8_fp32_step"}
+CROSS_KEY = "cross_i8"
 
 
-def path_launches(c: dict, what: str, fp32: bool, int8: bool = False) -> tuple:
+def path_launches(c: dict, what: str, fp32: bool, int8: bool = False,
+                  cross_i8: bool = False) -> tuple:
     """(kernel-1, kernel-2) launches of a path in its modes, from launch
     counts ``c``: the tiny and tiny-real engines run the fp32 modes, the
-    full-width ones the bf16 modes; any launch in another mode fails."""
-    mine = (ATTN_KEY[fp32], STEP_KEY[(int8, fp32)])
-    for k in (*ATTN_KEY.values(), *STEP_KEY.values()):
+    full-width ones the bf16 modes; any launch in another mode fails, and
+    so does the int8-direct cross kernel's unless ``cross_i8`` (its count
+    is then ``c[CROSS_KEY]``)."""
+    mine = (ATTN_KEY[fp32], STEP_KEY[(int8, fp32)], *((CROSS_KEY,) if cross_i8 else ()))
+    for k in (*ATTN_KEY.values(), *STEP_KEY.values(), CROSS_KEY):
         check(k in mine or c[k] == 0, f"{what}: {k} kernel launched {c[k]} times, "
                                       f"outside this path's modes {mine}")
     return c[mine[0]], c[mine[1]]
@@ -860,6 +882,137 @@ def phase_tts_step(torch, st5, ts, int8=False, fp32=False, bf16_ms=None):
             "library_ms": None, **tiny_t}, step
 
 
+# -- phase 4b: the int8-direct cross-attention kernel --------------------------
+
+# the kernel against its plain version on the same CUDA tensors: the output
+# within one bf16 step (2^-7) or 1e-4 in fp32, relative L2 (the int codes
+# and sums are exact; the softmax sums in another order, which moves a
+# weight's code by one in rare ties); at most one weight code in a thousand
+# one apart (at least one allowed)
+CROSS_I8_REL_TOL = {"bf16": 2 ** -7, "fp32": 1e-4}
+CROSS_I8_CODE_SHARE = 1e-3
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# one decode step's logits at full width, bf16, on the cache the path left:
+# the direct mode against the dequantize path.  Derived on the CPU from the
+# reference's own gap (tests/test_torch_cross_i8.py, large-v3 width, 4 of
+# 32 decoder layers, bf16: 5.27e-3): twice it, grown as the square root of
+# the depth to 32 layers, is 0.030; the bound is 0.04
+CROSS_I8_LOGITS_REL_TOL = 0.04
+CROSS_I8_MAIN = (16, 20, 1500)  # large-v3's decode step: 16 slots, 20 heads, S 1500
+
+
+def cross_i8_case(torch, g, B, H, S, dtype, masked):
+    """q ``[B, H, 1, 64]`` scaled as the decode step scales it, int8 caches
+    (``whisper.quantize_kv``) of positions of unlike magnitude, and per-slot
+    lengths with every fourth slot empty (a lone slot keeps half)."""
+    from infernos_tpu_torch.models import whisper as wsp
+
+    q = (torch.randn((B, H, 1, 64), generator=g, device="cuda") * 64 ** -0.5).to(dtype)
+    k, v = (torch.randn((B, H, S, 64), generator=g, device="cuda")
+            * (0.2 + 2.8 * torch.rand((B, H, S, 1), generator=g, device="cuda"))
+            for _ in range(2))
+    mask = None
+    if masked:
+        lens = torch.randint(0, S + 1, (B,), generator=g, device="cuda")
+        lens[::4] = 0
+        if B == 1:
+            lens[0] = S // 2 + 1
+        mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+    return q, wsp.quantize_kv(k), wsp.quantize_kv(v), mask
+
+
+def dequantize_core(torch, wsp, q, kc, vc, mask):
+    """What the direct mode replaces: ``dequantize_kv`` of K and V and the
+    core of ``layers.cross_attention_step`` between its projections."""
+    k, v = wsp.dequantize_kv(kc, q.dtype), wsp.dequantize_kv(vc, q.dtype)
+    logits = torch.matmul(q, k.transpose(-1, -2))
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], -1e9)
+    return torch.matmul(torch.softmax(logits, dim=-1), v)
+
+
+def cross_i8_held(torch, xi8, q, kc, vc, mask, what: str):
+    """The kernel and its plain version on the same tensors; fails unless
+    the output is finite and within ``CROSS_I8_REL_TOL`` (relative L2) and
+    the weights' codes agree (``CROSS_I8_CODE_SHARE``, one apart at most).
+    Returns the kernel's output, the plain version's codes and the figures."""
+    B, H, S = q.shape[0], q.shape[1], kc["q"].shape[2]
+    codes = torch.empty((B, H, S), dtype=torch.int8, device=q.device)
+    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes)
+    want, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
+    torch.cuda.synchronize()
+    diff = (codes.int() - want_codes.int()).abs()
+    stats = {"rel_l2": rel_l2_t(torch, got, want),
+             "max_abs_err": (got.float() - want.float()).abs().max().item(),
+             "codes_differing": int((diff > 0).sum().item()), "codes": codes.numel(),
+             "code_max_diff": int(diff.max().item())}
+    tol = CROSS_I8_REL_TOL["bf16" if q.dtype == torch.bfloat16 else "fp32"]
+    check(bool(torch.isfinite(got.float()).all()), f"cross_i8 kernel {what}: not finite")
+    check(stats["rel_l2"] <= tol, f"cross_i8 kernel {what}: {stats}, rel L2 over {tol}")
+    check(stats["code_max_diff"] <= 1 and stats["codes_differing"]
+          <= max(1, int(CROSS_I8_CODE_SHARE * stats["codes"])),
+          f"cross_i8 kernel {what}: {stats}, the weights' codes differ")
+    return got, want_codes, stats
+
+
+def phase_cross_i8(torch):
+    """The int8-direct cross-attention kernel against its plain version at
+    S 1, 63 and 1500 and B * H of 1 and 320, unmasked and with per-slot
+    lengths, in bf16 (and fp32 at the main shape): the output's relative L2
+    and the weights' codes that differ.  At the main shape ``[16, 20, 1500,
+    64]`` in bf16, unmasked: device ms (graph replay) and eager ms beside the
+    bound (the bytes this data needs: K codes and both scales of valid
+    positions, V codes where a weight's code is not 0, q and the output)
+    and the dequantize path it replaces at the same shapes
+    (``dequantize_ms``)."""
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases, main = [], None
+    shapes = [(16, 20, S) for S in (1500, 63, 1)] + [(1, 1, S) for S in (1500, 63, 1)]
+    for (B, H, S) in shapes:
+        for dtype in (("bf16", "fp32") if (B, H, S) == CROSS_I8_MAIN else ("bf16",)):
+            for masked in (False, True):
+                tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+                q, kc, vc, mask = cross_i8_case(torch, g, B, H, S, tdt, masked)
+                case = {"B": B, "H": H, "S": S, "dtype": dtype, "masked": masked}
+                got, want_codes, stats = cross_i8_held(torch, xi8, q, kc, vc, mask, str(case))
+                case.update(stats)
+                if (B, H, S) == CROSS_I8_MAIN and dtype == "bf16" and not masked:
+                    main = case
+                    n = B * H * S
+                    live = int((want_codes != 0).sum().item())
+                    small = 2 * 2 * B * H * 64  # q in, the output out (bf16)
+                    n_bytes = n * 64 + n * 4 + n * 4 + live * 64 + small
+                    n_ops = 2 * 2 * n * 64.0  # two s8 products, a multiply and an add
+                    case["bound_ms"], case["bound_by"] = bound_ms(n_bytes, n_ops,
+                                                                  PEAK_INT8_OPS)
+                    case["bound_all_rows_ms"] = bound_ms(2 * n * 64 + 2 * n * 4 + small,
+                                                         n_ops, PEAK_INT8_OPS)[0]
+                    case["v_rows_needed"] = live
+                    kernel = lambda: xi8._kernel_cross_attention_i8(q, kc, vc)
+                    dequant = lambda: dequantize_core(torch, wsp, q, kc, vc, None)
+                    case["ms"] = graph_ms(kernel, 50)
+                    case["eager_ms"] = cuda_ms(kernel, 50)
+                    case["plain_ms"] = cuda_ms(lambda: xi8._plain_cross_attention_i8(
+                        q, kc, vc), 5)
+                    case["dequantize_ms"] = graph_ms(dequant, 20)
+                    case["dequantize_eager_ms"] = cuda_ms(dequant, 20)
+                    case["dequantize_rel_l2"] = rel_l2_t(torch, got, dequant())
+                cases.append(case)
+    emit("kernel_cross_i8", tol=CROSS_I8_REL_TOL, code_share=CROSS_I8_CODE_SHARE,
+         cases=cases, bound_us=main["bound_ms"] * 1e3)
+    return {"name": "cross_attention_i8", "route": "cuda",
+            "source": "infernos_tpu_torch/csrc/cross_attention_i8.cu",
+            "replaces": "infernos_tpu/models/layers.py:431",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "library_ms": None,  # no single PyTorch call; dequantize_ms is the path it replaces
+            **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bound_all_rows_ms", "dequantize_ms",
+                                    "dequantize_eager_ms")}}
+
+
 # -- phase 5: STT engine at whisper-large-v3 width ----------------------------
 
 def synth_audio(rng, seconds: float, sr: int = 16000) -> np.ndarray:
@@ -957,7 +1110,117 @@ def phase_stt(torch, attn, profile_dir=None):
          audio_s=[len(a) / 16000 for a in audios],
          n_tokens=[len(results[i].tokens) for i in range(len(audios))],
          **profile_summary(torch, prof, wall_s, profile_dir, "stt"))
-    return launches, params
+    return launches, params, results
+
+
+def phase_stt_cross_i8(torch, params, dequant_results):
+    """The ``stt`` phase's engine with ``cross_int8_direct=True`` on the
+    params that phase made, serving its four requests: 32 launches of the
+    int8-direct cross kernel (one per decoder layer) per decode step and
+    kernel 1 once per encoder layer per encode, no other mode.  Then, on
+    the cache the path left (the self caches copied), one decode step's
+    logits of the served slots, the direct mode against the dequantize path
+    (within ``CROSS_I8_LOGITS_REL_TOL``); in that step each layer's kernel
+    call is held to the plain version on the same inputs, as the kernel
+    phase holds it (``CROSS_I8_REL_TOL``, ``CROSS_I8_CODE_SHARE``).  The
+    logits of the step through the plain version are printed beside them:
+    the bf16 model carries a one-step rounding difference through 32
+    layers, so that gap measures the model's sensitivity, not the kernel."""
+    import dataclasses
+
+    from infernos_tpu_torch.models import layers as L
+    from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+    from infernos_tpu_torch.serving import stt_engine as stt
+
+    cfg = wsp.WhisperConfig()
+    ecfg = stt.STTEngineConfig(dtype=torch.bfloat16, max_new_tokens=16,
+                               cross_int8_direct=True)
+    eng = stt.STTEngine(params, cfg, ecfg)
+    check(eng.device.type == "cuda", "stt engine is not on the card")
+    rng = np.random.default_rng(0)  # the stt phase's requests
+    audios = [synth_audio(rng, s) for s in (2.0, 3.5, 5.25, 8.0)]
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    eng.encode_ms.clear()
+    steps_run = []
+    decode_step = wsp.decode_step
+
+    def counted(*a, **kw):
+        steps_run.append(kw.get("cross_direct_int8"))
+        return decode_step(*a, **kw)
+
+    results = {}
+    reset_launch_counts()  # the path starts here
+    with mock.patch.object(wsp, "decode_step", counted):
+        t0 = time.perf_counter()
+        for i, a in enumerate(audios):
+            eng.submit(stt.STTRequest(
+                audio=a, text_cb=lambda r, i=i: results.__setitem__(i, r)))
+        steps = 0
+        while len(results) < len(audios) and steps < 200:
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    c = launch_counts()  # right after the path
+    attn_launches, _ = path_launches(c, "stt_cross_i8", fp32=False, cross_i8=True)
+    launches = c[CROSS_KEY]
+    check(len(results) == len(audios), f"stt_cross_i8: {len(results)} of {len(audios)} results")
+    check(all(steps_run), "stt_cross_i8: a decode step ran without the direct mode")
+    check(launches == cfg.decoder_layers * len(steps_run) and launches > 0,
+          f"stt_cross_i8: the cross kernel launched {launches} times in "
+          f"{len(steps_run)} decode steps, want {cfg.decoder_layers} a step")
+    check(attn_launches == cfg.encoder_layers * len(audios),
+          f"stt_cross_i8: attention kernel launched {attn_launches} times")
+    for i, r in results.items():
+        check(len(r.tokens) <= ecfg.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.tokens)
+              and math.isfinite(r.avg_logprob) and math.isfinite(r.no_speech_prob),
+              f"stt_cross_i8 request {i}: bad result")
+
+    served = eng.enc_mask.any(dim=1)
+    check(int(served.sum()) >= len(audios), "stt_cross_i8: the served slots' masks are gone")
+
+    def one_step(direct, core=None):
+        cache = dataclasses.replace(eng.cache, self_k=eng.cache.self_k.clone(),
+                                    self_v=eng.cache.self_v.clone())
+        patch = (mock.patch.object(L, "cross_attention_i8", core) if core
+                 else contextlib.nullcontext())
+        with torch.no_grad(), patch:
+            return wsp.decode_step(params, cfg, eng.cur_tok, cache, eng.pos,
+                                   enc_mask=eng.enc_mask, cross_direct_int8=direct)[served]
+
+    layers = []  # each layer's kernel call against the plain version on its inputs
+
+    def held(q, k_c, v_c, kv_mask=None):
+        got, _, stats = cross_i8_held(torch, xi8, q, k_c, v_c, kv_mask,
+                                      f"stt_cross_i8 layer {len(layers)}")
+        layers.append(stats)
+        return got
+
+    direct = one_step(True, held)
+    vs_dequant = rel_l2_t(torch, direct, one_step(False))
+    vs_plain = rel_l2_t(torch, direct, one_step(True, xi8._plain_cross_attention_i8))
+    check(bool(torch.isfinite(direct.float()).all()), "stt_cross_i8: logits not finite")
+    check(vs_dequant <= CROSS_I8_LOGITS_REL_TOL,
+          f"stt_cross_i8: direct logits {vs_dequant} from the dequantize path's")
+    check(len(layers) == cfg.decoder_layers, f"stt_cross_i8: {len(layers)} layers held")
+    same = [results[i].tokens == dequant_results[i].tokens for i in range(len(audios))]
+    emit("stt_cross_i8", model="whisper-large-v3", warmup_s=warmup_s, steps=steps,
+         decode_steps=len(steps_run), wall_s=wall_s, cross_i8_launches=launches,
+         attention_launches=attn_launches, encode_ms=eng.encode_ms,
+         latency_s=[results[i].inf_time for i in range(len(audios))],
+         n_tokens=[len(results[i].tokens) for i in range(len(audios))],
+         avg_logprob=[results[i].avg_logprob for i in range(len(audios))],
+         dequant_avg_logprob=[dequant_results[i].avg_logprob for i in range(len(audios))],
+         tokens_as_dequantize_path=same,
+         logits_rel_l2_vs_dequantize=vs_dequant, logits_rel_tol=CROSS_I8_LOGITS_REL_TOL,
+         logits_rel_l2_vs_plain=vs_plain, slots_compared=int(served.sum()),
+         layers_rel_l2_max=max(x["rel_l2"] for x in layers),
+         layers_codes_differing=sum(x["codes_differing"] for x in layers))
+    return launches
 
 
 # -- phase 6: TTS engine at SpeechT5 + HiFi-GAN + AmendNet width ---------------
@@ -3652,7 +3915,7 @@ sys.argv = [module] + sys.argv[2:]
 importlib.import_module(module).main()
 report("done")
 """
-LAUNCH_KEYS = (*ATTN_KEY.values(), *STEP_KEY.values())
+LAUNCH_KEYS = (*ATTN_KEY.values(), *STEP_KEY.values(), CROSS_KEY)
 WORK_KEYS = (*LAUNCH_KEYS, "encodes", "encoder_layer_runs", "steps")
 
 
@@ -5923,7 +6186,9 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
     ``fused_attention`` call at the encoder's shape in bf16 and in fp32
     (want 1: the kernel), of the bf16 kernel behind a head split, of one
     ``fused_decode_step`` call at full width in each mode (``step_calls``:
-    the step phases' own calls; want 1 each), and of one ``whisper.encode``.
+    the step phases' own calls; want 1 each), of one ``cross_attention_i8``
+    call at large-v3's decode step, masked (want 1), and of one
+    ``whisper.encode``.
     It runs last: once the profiler has been on, every later launch of the
     process costs the host more, which would spoil the phases' host clocks."""
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -5939,6 +6204,11 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
                                             n_heads=20))}
     for mode, fn in (step_calls or {}).items():
         out[f"fused_decode_step_{mode}"] = device_launches(torch, fn)
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+
+    cq, ck, cv, cmask = cross_i8_case(torch, g, *CROSS_I8_MAIN, torch.bfloat16, True)
+    out["cross_attention_i8"] = device_launches(
+        torch, lambda: xi8.cross_attention_i8(cq, ck, cv, cmask))
     # one decode dispatch (K steps) of the tiny-real LLM engine: its
     # kernels per layer and step are those of any Qwen config
     from infernos_tpu_torch.models import tiny_real
@@ -5962,9 +6232,9 @@ def phase_device_launches(torch, attn, step_calls=None, stt_params=None):
                 torch, lambda: wsp.encode(stt_params, cfg, mel))
         out["encoder_layers"] = cfg.encoder_layers
     emit("device_launches", **out)
-    for name in ("fused_attention", "fused_attention_fp32"):
+    for name in ("fused_attention", "fused_attention_fp32", "cross_attention_i8"):
         check(out[name] == 1, f"{name} ran {out[name]} kernels and copies "
-                              f"on the card, want the attention kernel alone")
+                              f"on the card, want its kernel alone")
     for mode in step_calls or {}:
         n = out[f"fused_decode_step_{mode}"]
         check(n == 1, f"fused_decode_step ({mode}) ran {n} kernels and copies "
@@ -5995,8 +6265,14 @@ def _remote_call_alone(torch, attn):
     return phase_remote_call(torch, attn, ts)
 
 
+def _cross_i8_alone(torch, attn):
+    phase_cross_i8(torch)
+    _, params, results = phase_stt(torch, attn)
+    phase_stt_cross_i8(torch, params, results)
+
+
 # the phases ``--phases`` runs alone after the build
-ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone,
+ALONE_PHASES = {**BENCH_PHASES, "remote_call": _remote_call_alone, "cross_i8": _cross_i8_alone,
                 "parallel": lambda torch, attn: phase_parallel(torch),
                 "examples": lambda torch, attn: phase_examples(torch),
                 "train": phase_train}
@@ -6014,7 +6290,8 @@ def main(argv=None) -> int:
                          "result line)")
     ap.add_argument("--phases", metavar="NAME,...",
                     help="run only these of the bench phases, stt_ladder, ckpt_port, "
-                         "remote_call, parallel, examples and train, in the order given, after "
+                         "remote_call, cross_i8 (kernel_cross_i8, stt, stt_cross_i8), "
+                         "parallel, examples and train, in the order given, after "
                          "the build "
                          "(prints no result line): " + ", ".join(ALONE_PHASES))
     ap.add_argument("--ckpt-seed", type=int, default=CKPT_SEED,
@@ -6092,11 +6369,13 @@ def main(argv=None) -> int:
         kernels.append(row)
         step_calls[STEP_KEY[(int8, fp32)]] = call
         bf16_ms = bf16_ms if bf16_ms is not None else row["ms"]
+    kernels.append(phase_cross_i8(torch))
     if args.only == "kernels":
         phase_device_launches(torch, attn, step_calls)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    stt_launches, stt_params = phase_stt(torch, attn, args.profile)
+    stt_launches, stt_params, stt_results = phase_stt(torch, attn, args.profile)
+    cross_launches = phase_stt_cross_i8(torch, stt_params, stt_results)
     tts_launches = phase_tts(torch, ts, args.profile)
     wide_launches = tts_engine_wide(torch, ts)
     turn_attn, turn_int8, turn_bf16 = phase_turn(torch, attn, ts, stt_params)
@@ -6157,6 +6436,8 @@ def main(argv=None) -> int:
         # no engine of the main path runs int8 weights over fp32 caches: the
         # mode is held to its plain version above and has no path here
         "tts_decode_step_int8_fp32": {},
+        # opt-in (STTEngineConfig.cross_int8_direct): every other path holds 0
+        "cross_attention_i8": {"stt_cross_i8": cross_launches},
     }
     check(turn_bf16 == 0, f"turn: the bf16 step kernel launched {turn_bf16} times")
     for row in kernels:

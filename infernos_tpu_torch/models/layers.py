@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.cross_attention_i8 import cross_attention_i8
+
 Params = Dict[str, Any]
 
 NEG_INF = -1e9  # mask value; avoids -inf so all-masked rows stay NaN-free
@@ -299,6 +301,29 @@ def cross_attention_step(p: Params, x_q, k_cache, v_cache, *, n_heads: int,
         logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.matmul(w, v_cache.to(q.dtype))
+    return linear(merge_heads(out), p["o"])
+
+
+def cross_attention_step_i8(p: Params, x_q, k_c, v_c, *, n_heads: int,
+                            kv_mask=None):
+    """Int8-direct :func:`cross_attention_step`: the int8 cross cache read as
+    it is stored, s8 x s8 -> s32 dots with the scales folded outside them
+    (the reference's ``cross_attention_step_i8``).  Dequantizing the cache
+    each step writes and reads a full-width K and V per layer; this reads
+    the codes once.  The only new error against the dequantize path is the
+    int8 rounding of q and of the scale-folded probabilities (about 0.4% of
+    a row's max).
+
+    k_c/v_c: one layer's ``{"q": int8 [B, H, S, Dh], "s": f32 [B, H, S,
+    1]}`` (``whisper.quantize_kv``; the reference keeps them time-minor).
+    The projections stay ``linear``; the core between them is
+    :func:`infernos_tpu_torch.ops.cross_attention_i8.cross_attention_i8`
+    (the CUDA kernel on the card).
+    """
+    D = x_q.shape[-1]
+    dh = D // n_heads
+    q = split_heads(linear(x_q, p["q"]), n_heads) * dh ** -0.5  # [B,H,1,dh]
+    out = cross_attention_i8(q, k_c, v_c, kv_mask)
     return linear(merge_heads(out), p["o"])
 
 

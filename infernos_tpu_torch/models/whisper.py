@@ -221,11 +221,17 @@ def decode_full(params, cfg: WhisperConfig, tokens, enc_out, enc_mask=None):
 
 
 def decode_step(params, cfg: WhisperConfig, tokens, cache: WhisperCache, pos,
-                enc_mask=None, write: Optional[torch.Tensor] = None):
+                enc_mask=None, write: Optional[torch.Tensor] = None,
+                cross_direct_int8: bool = False):
     """One greedy step for all slots: tokens ``[B]``, pos ``[B]`` -> logits
     ``[B, V]``.  The self caches are updated in place at ``pos`` (only for
-    slots where ``write`` is True, when given)."""
+    slots where ``write`` is True, when given).  ``cross_direct_int8``
+    reads the int8 cross cache directly (``layers.cross_attention_step_i8``)
+    instead of dequantizing it each layer."""
     H = cfg.decoder_attention_heads
+    if cross_direct_int8:
+        assert isinstance(cache.cross_k, dict) and isinstance(cache.cross_v, dict), \
+            "int8-direct cross attention needs the int8 cross cache"
     n_pos = params["dec_pos"]["w"].shape[0]
     x = (params["tok_embed"]["w"][tokens.long()]
          + params["dec_pos"]["w"][pos.long().clamp(max=n_pos - 1)])[:, None, :]
@@ -234,11 +240,17 @@ def decode_step(params, cfg: WhisperConfig, tokens, cache: WhisperCache, pos,
         x = x + L.attention_step(lp["self_attn"], L.layer_norm(x, lp["ln1"]),
                                  n_heads=H, k_cache=cache.self_k[i],
                                  v_cache=cache.self_v[i], pos=pos, write=write)
-        x = x + L.cross_attention_step(
-            lp["cross_attn"], L.layer_norm(x, lp["ln2"]),
-            dequantize_kv(_layer_kv(cache.cross_k, i), x.dtype),
-            dequantize_kv(_layer_kv(cache.cross_v, i), x.dtype),
-            n_heads=H, kv_mask=enc_mask)
+        if cross_direct_int8:
+            x = x + L.cross_attention_step_i8(
+                lp["cross_attn"], L.layer_norm(x, lp["ln2"]),
+                _layer_kv(cache.cross_k, i), _layer_kv(cache.cross_v, i),
+                n_heads=H, kv_mask=enc_mask)
+        else:
+            x = x + L.cross_attention_step(
+                lp["cross_attn"], L.layer_norm(x, lp["ln2"]),
+                dequantize_kv(_layer_kv(cache.cross_k, i), x.dtype),
+                dequantize_kv(_layer_kv(cache.cross_v, i), x.dtype),
+                n_heads=H, kv_mask=enc_mask)
         h = L.layer_norm(x, lp["ln3"])
         x = x + L.linear(L.gelu(L.linear(h, lp["fc1"])), lp["fc2"])
     x = L.layer_norm(x, params["dec_ln"])[:, 0]

@@ -3,7 +3,9 @@
 :func:`launch_counts` reads every kernel mode's launch counter by name:
 kernel 1 (``attention.fused_attention``) in bf16 and in fp32, kernel 2
 (``tts_step.fused_decode_step``) with bf16 or int8 weights over bf16 or
-fp32 caches.
+fp32 caches, and the int8-direct cross-attention core
+(``cross_attention_i8.cross_attention_i8``, a port of an XLA path of the
+reference, not of a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -18,13 +20,16 @@ LAUNCH_COUNTERS = {
     "int8_step": ("tts_step", "launches_int8"),
     "fp32_step": ("tts_step", "launches_fp32"),
     "int8_fp32_step": ("tts_step", "launches_int8_fp32"),
+    "cross_i8": ("cross_attention_i8", "launches"),
 }
 
 
 def _entry(module: str):
-    from . import attention, tts_step
+    from . import attention, cross_attention_i8, tts_step
 
-    return attention.fused_attention if module == "attention" else tts_step.fused_decode_step
+    return {"attention": attention.fused_attention,
+            "tts_step": tts_step.fused_decode_step,
+            "cross_attention_i8": cross_attention_i8.cross_attention_i8}[module]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -21,7 +21,8 @@ from typing import Dict, Optional, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("attention", "attention_fp32", "tts_step", "tts_step_cluster")
+SOURCES = ("attention", "attention_fp32", "tts_step", "tts_step_cluster",
+           "cross_attention_i8")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,9 @@ Port of ``infernos_tpu/serving/stt_engine.py`` with the same semantics:
 - ``steps_per_dispatch`` greedy steps per ``step()``, suppress ids, EOS;
 - non-blocking joins: the first token stays on the device and
   ``(first_tok, ns_prob)`` are fetched once, at the slot's first harvest;
+- the int8-direct cross attention (opt-in ``cross_int8_direct``): each
+  decode step reads the int8 cross cache as stored, through
+  ``layers.cross_attention_step_i8``, instead of dequantizing it;
 - submitters only take ``_sub_lock``; the stepping thread holds ``_lock``;
 - the decode-quality ladder (opt-in, OpenAI whisper semantics): a result
   that fails the gate (low average logprob, or a repetition loop by zlib
@@ -79,6 +82,12 @@ class STTEngineConfig:
     suppress_tokens: Optional[Sequence[int]] = None
     begin_suppress_tokens: Optional[Sequence[int]] = None
     cross_kv_int8: bool = True
+    # read the int8 cross cache directly (s8 x s8 dots, scales folded
+    # outside them, layers.cross_attention_step_i8; the CUDA kernel
+    # csrc/cross_attention_i8.cu on the card) instead of dequantizing each
+    # layer's K and V every step.  Requires cross_kv_int8.  Adds int8
+    # rounding of q and of the scale-folded probs (~0.4% of row max).
+    cross_int8_direct: bool = False
     # -1 = auto (the model's trained length), 0 = per-bucket encode
     encode_pad_s: int = -1
     steps_per_dispatch: int = 8
@@ -98,6 +107,13 @@ class STTEngineConfig:
     fallback_beam_size: int = 0
     beam_length_penalty: float = 1.0
     trim_lead_silence: float = 0.0
+
+    def __post_init__(self) -> None:
+        # fail at config time with a readable message, not inside a step
+        if self.cross_int8_direct and not self.cross_kv_int8:
+            raise ValueError(
+                "cross_int8_direct=True requires cross_kv_int8=True (the "
+                "s8xs8 cross step reads the int8 dict cache)")
 
     @property
     def max_total_tokens(self) -> int:
@@ -314,7 +330,8 @@ class STTEngine:
             not_done = ~self.done
             logits = wsp.decode_step(self.params, self.cfg, self.cur_tok,
                                      self.cache, self.pos,
-                                     enc_mask=self.enc_mask, write=not_done)
+                                     enc_mask=self.enc_mask, write=not_done,
+                                     cross_direct_int8=self.ecfg.cross_int8_direct)
             lf = logits.float()
             if self._sup is not None:
                 lf[:, self._sup] = L.NEG_INF

@@ -315,7 +315,8 @@ def test_launch_counts_name_every_mode_and_a_path_is_held_to_its_own():
     from infernos_tpu_torch import ops
 
     assert set(ops.launch_counts()) == {"attention", "attention_fp32", "bf16_step",
-                                        "int8_step", "fp32_step", "int8_fp32_step"}
+                                        "int8_step", "fp32_step", "int8_fp32_step",
+                                        "cross_i8"}
     saved = ops.launch_counts()
     try:
         ts.fused_decode_step.launches_int8_fp32 = 5
@@ -326,14 +327,13 @@ def test_launch_counts_name_every_mode_and_a_path_is_held_to_its_own():
         assert set(ops.launch_counts().values()) == {0}
     finally:
         for name, (module, counter) in ops.LAUNCH_COUNTERS.items():
-            setattr(attn.fused_attention if module == "attention" else ts.fused_decode_step,
-                    counter, saved[name])
+            setattr(ops._entry(module), counter, saved[name])
     c = dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
     assert chip_smoke.path_launches({**c, "attention_fp32": 2, "fp32_step": 3}, "tiny",
                                     fp32=True) == (2, 3)
     assert chip_smoke.path_launches({**c, "attention": 32, "int8_step": 9}, "turn",
                                     fp32=False, int8=True) == (32, 9)
     for fp32, stray in ((True, "bf16_step"), (True, "attention"), (False, "fp32_step"),
-                        (False, "int8_fp32_step")):
+                        (False, "int8_fp32_step"), (True, "cross_i8"), (False, "cross_i8")):
         with pytest.raises(RuntimeError, match="outside this path's modes"):
             chip_smoke.path_launches({**c, stray: 1}, "path", fp32=fp32)

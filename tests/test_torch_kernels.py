@@ -33,6 +33,13 @@ inputs, and a short masked row's output is as large as a V entry; fp32
 hidden state of the decoder step and its bf16 cache rows, 3e-2 (the kernel
 rounds x to bf16 before each product, as the TPU kernel does); a bf16
 hidden state, one more rounding (2^-7 relative).
+The int8-direct cross-attention kernel (``csrc/cross_attention_i8.cu``) is
+held to its plain version on the same CUDA tensors at S 1, 63 and 1500 and
+at B * H of 1 and 320, unmasked and with per-slot lengths (some slots
+empty), in bf16 and fp32: the weights' int8 codes (at most one in a
+thousand one apart, the softmax summed in another order) and the output
+within 2^-7 (bf16) or 1e-4 (fp32) relative L2; it refuses a
+non-contiguous or wrong-type cache and a failed build raises.
 """
 
 import pytest
@@ -678,3 +685,85 @@ def test_cluster_step_is_deterministic_and_graph_replays_it(card, mode):
         assert torch.equal(h, h1)
     for c in (c2, c3):
         assert torch.equal(c.self_k, c1.self_k) and torch.equal(c.self_v, c1.self_v)
+
+
+# -- the int8-direct cross-attention kernel (csrc/cross_attention_i8.cu) -------
+
+CROSS_I8_REL_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
+
+
+def _cross_i8_case(card, B, H, S, dtype, masked, seed):
+    """``chip_smoke.cross_i8_case``: q scaled as the decode step scales it,
+    int8 caches of positions of unlike magnitude, per-slot lengths with
+    every fourth slot empty (a lone slot keeps half its positions)."""
+    import chip_smoke
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    return chip_smoke.cross_i8_case(torch, g, B, H, S, dtype, masked)
+
+
+@pytest.mark.parametrize("S", [1, 63, 1500])
+@pytest.mark.parametrize("BH", [(1, 1), (16, 20)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_i8_kernel_matches_plain(card, S, BH, masked, dtype):
+    """The kernel against its plain version on the same CUDA tensors: the
+    weights' codes equal but for at most one in a thousand (at least one
+    allowed), each at most one apart (the softmax sums in another order);
+    the output within one bf16 step (2^-7) or 1e-4 in fp32, relative L2;
+    one launch; two calls and a CUDA-graph replay give the same bits."""
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+
+    B, H = BH
+    q, kc, vc, mask = _cross_i8_case(card, B, H, S, dtype, masked, seed=S + 7 * B + masked)
+    codes = torch.empty((B, H, S), dtype=torch.int8, device=card)
+    before = xi8.cross_attention_i8.launches
+    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes)
+    torch.cuda.synchronize()
+    assert xi8.cross_attention_i8.launches == before + 1
+    want, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
+    assert got.dtype == dtype and got.shape == (B, H, 1, 64)
+    assert torch.isfinite(got.float()).all()
+    diff = (codes.int() - want_codes.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() <= max(1, codes.numel() // 1000)
+    assert _rel_l2(got, want) <= CROSS_I8_REL_TOL[dtype]
+    assert torch.equal(xi8.cross_attention_i8(q, kc, vc, mask), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = xi8.cross_attention_i8(q, kc, vc, mask)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+
+
+def test_cross_i8_kernel_refuses_instead_of_taking_the_plain_route(card, monkeypatch):
+    """A non-contiguous or wrong-type cache raises on the card, and so does
+    a failed build: nothing reaches the plain version."""
+    from infernos_tpu_torch.ops import build
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+
+    q, kc, vc, _ = _cross_i8_case(card, 2, 3, 40, torch.bfloat16, False, seed=1)
+    strided = {"q": kc["q"].transpose(2, 3).contiguous().transpose(2, 3), "s": kc["s"]}
+    with pytest.raises(ValueError, match="contiguous"):
+        xi8.cross_attention_i8(q, strided, vc)
+    with pytest.raises(ValueError, match="int8 codes and fp32 scales"):
+        xi8.cross_attention_i8(q, {**kc, "s": kc["s"].half()}, vc)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        xi8.cross_attention_i8(q.half(), kc, vc)
+    called = []
+    monkeypatch.setattr(xi8, "_plain_cross_attention_i8", lambda *a, **k: called.append(a))
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    xi8._entry.cache_clear()
+    monkeypatch.setattr(build, "load", no_build)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            xi8.cross_attention_i8(q, kc, vc)
+    finally:
+        xi8._entry.cache_clear()
+    assert called == []
