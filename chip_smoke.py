@@ -234,6 +234,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import itertools
 import json
 import logging
 import math
@@ -396,8 +397,8 @@ def sass_summary(build, name: str):
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of each kernel (mangled name) in one
-    source's ``-Xptxas -v`` report."""
+    """Registers, spill bytes and static shared memory of each kernel
+    (mangled name) in one source's ``-Xptxas -v`` report."""
     import re
 
     out, cur = {}, None
@@ -411,6 +412,9 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur is not None:
+            cur["static_smem"] = int(m.group(1))
     return out
 
 
@@ -899,12 +903,21 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 # the depth to 32 layers, is 0.030; the bound is 0.04
 CROSS_I8_LOGITS_REL_TOL = 0.04
 CROSS_I8_MAIN = (16, 20, 1500)  # large-v3's decode step: 16 slots, 20 heads, S 1500
+# the STT engine's masks (serving/stt_engine.py masks each slot to its
+# bucket's encoder length): 8, 16 and 30 s buckets and an empty slot
+XI8_ENGINE_LENS = (400, 800, 1500, 0)
+# shapes whose positions overflow the shared memory of the plan that keeps
+# every block resident: 528 rows of 14,000 take blocks of 64 threads, 320
+# rows of 30,000 a cluster of 4 (cross_i8_plan)
+XI8_STEPPED = ((24, 22, 14000), (16, 20, 30000))
 
 
 def cross_i8_case(torch, g, B, H, S, dtype, masked):
     """q ``[B, H, 1, 64]`` scaled as the decode step scales it, int8 caches
-    (``whisper.quantize_kv``) of positions of unlike magnitude, and per-slot
-    lengths with every fourth slot empty (a lone slot keeps half)."""
+    (``whisper.quantize_kv``) of positions of unlike magnitude, and, if
+    ``masked``, per-slot lengths: random with every fourth slot empty (a
+    lone slot keeps half), or, where ``masked`` is a tuple of lengths, those
+    cycled over the slots (the STT engine's masks: ``XI8_ENGINE_LENS``)."""
     from infernos_tpu_torch.models import whisper as wsp
 
     q = (torch.randn((B, H, 1, 64), generator=g, device="cuda") * 64 ** -0.5).to(dtype)
@@ -912,7 +925,10 @@ def cross_i8_case(torch, g, B, H, S, dtype, masked):
             * (0.2 + 2.8 * torch.rand((B, H, S, 1), generator=g, device="cuda"))
             for _ in range(2))
     mask = None
-    if masked:
+    if isinstance(masked, tuple):
+        lens = torch.tensor([masked[b % len(masked)] for b in range(B)], device="cuda")
+        mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+    elif masked:
         lens = torch.randint(0, S + 1, (B,), generator=g, device="cuda")
         lens[::4] = 0
         if B == 1:
@@ -931,15 +947,20 @@ def dequantize_core(torch, wsp, q, kc, vc, mask):
     return torch.matmul(torch.softmax(logits, dim=-1), v)
 
 
-def cross_i8_held(torch, xi8, q, kc, vc, mask, what: str):
-    """The kernel and its plain version on the same tensors; fails unless
-    the output is finite and within ``CROSS_I8_REL_TOL`` (relative L2) and
-    the weights' codes agree (``CROSS_I8_CODE_SHARE``, one apart at most).
-    Returns the kernel's output, the plain version's codes and the figures."""
+def cross_i8_held(torch, xi8, q, kc, vc, mask, what: str, plan=None, want=None):
+    """The kernel (under ``plan``, else the wrapper's) and its plain version
+    (``want``: its output and codes, if already computed) on the same
+    tensors; fails unless the output is finite and within
+    ``CROSS_I8_REL_TOL`` (relative L2) and the weights' codes agree
+    (``CROSS_I8_CODE_SHARE``, one apart at most).  Returns the kernel's
+    output, the plain version's output and codes, and the figures."""
     B, H, S = q.shape[0], q.shape[1], kc["q"].shape[2]
     codes = torch.empty((B, H, S), dtype=torch.int8, device=q.device)
-    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes)
-    want, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
+    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes, plan=plan)
+    if want is None:
+        out, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
+        want = out, want_codes
+    want, want_codes = want
     torch.cuda.synchronize()
     diff = (codes.int() - want_codes.int()).abs()
     stats = {"rel_l2": rel_l2_t(torch, got, want),
@@ -952,65 +973,107 @@ def cross_i8_held(torch, xi8, q, kc, vc, mask, what: str):
     check(stats["code_max_diff"] <= 1 and stats["codes_differing"]
           <= max(1, int(CROSS_I8_CODE_SHARE * stats["codes"])),
           f"cross_i8 kernel {what}: {stats}, the weights' codes differ")
-    return got, want_codes, stats
+    return got, (want, want_codes), stats
 
 
 def phase_cross_i8(torch):
     """The int8-direct cross-attention kernel against its plain version at
-    S 1, 63 and 1500 and B * H of 1 and 320, unmasked and with per-slot
-    lengths, in bf16 (and fp32 at the main shape): the output's relative L2
-    and the weights' codes that differ.  At the main shape ``[16, 20, 1500,
-    64]`` in bf16, unmasked: device ms (graph replay) and eager ms beside the
-    bound (the bytes this data needs: K codes and both scales of valid
-    positions, V codes where a weight's code is not 0, q and the output)
-    and the dequantize path it replaces at the same shapes
-    (``dequantize_ms``)."""
+    S 1, 63 and 1500 and B * H of 1 and 320, unmasked, with random
+    per-slot lengths and with the STT engine's (``XI8_ENGINE_LENS``: whole
+    ranges of a cluster and whole rows masked), in bf16 (and fp32 at the
+    main shape), under the wrapper's plan (``cross_i8_plan``) and under
+    clusters of 1, 2, 4 and 8 blocks, and at the shapes ``XI8_STEPPED``
+    under the wrapper's plan: the output's relative L2 and the weights'
+    codes that differ.  At the main shape ``[16, 20, 1500, 64]``
+    in bf16, unmasked and at the engine's masks, each with its plan: device
+    ms (graph replay of one input, which the 50 MB L2 partly keeps between
+    calls; ``cold_ms``: cycling through four, 260 MB, as the decode step
+    finds each layer's cache) and eager ms beside the bound (the bytes this data
+    needs: K codes and scales of valid positions, V scales where a weight
+    can be non-zero, V codes where a weight's code is not 0, q and the
+    output; ``ops/cross_attention_i8_ablate.py`` ``needed_bytes``); unmasked
+    also the plain version and the dequantize path it replaces at the same
+    shapes (``dequantize_ms``).  The kernels row carries the plan, the
+    registers and the static shared memory (phase ``build``)."""
     from infernos_tpu_torch.models import whisper as wsp
+    from infernos_tpu_torch.ops import build
     from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+    from infernos_tpu_torch.ops.cross_attention_i8_ablate import needed_bytes
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    cases, main = [], None
+    cases, timed = [], {}
     shapes = [(16, 20, S) for S in (1500, 63, 1)] + [(1, 1, S) for S in (1500, 63, 1)]
     for (B, H, S) in shapes:
         for dtype in (("bf16", "fp32") if (B, H, S) == CROSS_I8_MAIN else ("bf16",)):
-            for masked in (False, True):
+            for masked in (False, True, XI8_ENGINE_LENS):
                 tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
                 q, kc, vc, mask = cross_i8_case(torch, g, B, H, S, tdt, masked)
-                case = {"B": B, "H": H, "S": S, "dtype": dtype, "masked": masked}
-                got, want_codes, stats = cross_i8_held(torch, xi8, q, kc, vc, mask, str(case))
-                case.update(stats)
-                if (B, H, S) == CROSS_I8_MAIN and dtype == "bf16" and not masked:
-                    main = case
+                want = None
+                for cluster in (None, 1, 2, 4, 8):
+                    plan = None if cluster is None else xi8.cross_i8_plan(B * H, S,
+                                                                          cluster=cluster)
+                    shown = plan or xi8.cross_i8_plan(B * H, S)
+                    case = {"B": B, "H": H, "S": S, "dtype": dtype,
+                            "masked": "engine" if isinstance(masked, tuple) else masked,
+                            "plan": "wrapper" if plan is None else "forced",
+                            **{k: shown[k] for k in ("cluster", "threads")}}
+                    got, want, stats = cross_i8_held(torch, xi8, q, kc, vc, mask, str(case),
+                                                     plan=plan, want=want)
+                    case.update(stats)
+                    cases.append(case)
+                if (B, H, S) != CROSS_I8_MAIN or dtype != "bf16" or masked is True:
+                    continue
+                name = "main" if masked is False else "engine"
+                plan = xi8.cross_i8_plan(B * H, S)
+                n_bytes, n_ops, live = needed_bytes(q, mask, want[1])
+                kernel = lambda: xi8._kernel_cross_attention_i8(q, kc, vc, mask)  # noqa: E731
+                others = [cross_i8_case(torch, g, B, H, S, tdt, masked) for _ in range(3)]
+                calls = itertools.cycle([kernel] + [
+                    (lambda c: lambda: xi8._kernel_cross_attention_i8(*c))(c) for c in others])
+                row = timed[name] = {
+                    "ms": graph_ms(kernel, 50), "eager_ms": cuda_ms(kernel, 50),
+                    "cold_ms": graph_ms(lambda: next(calls)(), 48),
+                    "v_rows_needed": live,
+                    "plan": {k: plan[k] for k in ("cluster", "threads", "blocks", "rows",
+                                                  "smem_bytes")}}
+                del others
+                row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+                if masked is False:
                     n = B * H * S
-                    live = int((want_codes != 0).sum().item())
-                    small = 2 * 2 * B * H * 64  # q in, the output out (bf16)
-                    n_bytes = n * 64 + n * 4 + n * 4 + live * 64 + small
-                    n_ops = 2 * 2 * n * 64.0  # two s8 products, a multiply and an add
-                    case["bound_ms"], case["bound_by"] = bound_ms(n_bytes, n_ops,
-                                                                  PEAK_INT8_OPS)
-                    case["bound_all_rows_ms"] = bound_ms(2 * n * 64 + 2 * n * 4 + small,
-                                                         n_ops, PEAK_INT8_OPS)[0]
-                    case["v_rows_needed"] = live
-                    kernel = lambda: xi8._kernel_cross_attention_i8(q, kc, vc)
-                    dequant = lambda: dequantize_core(torch, wsp, q, kc, vc, None)
-                    case["ms"] = graph_ms(kernel, 50)
-                    case["eager_ms"] = cuda_ms(kernel, 50)
-                    case["plain_ms"] = cuda_ms(lambda: xi8._plain_cross_attention_i8(
+                    row["bound_all_rows_ms"] = bound_ms(
+                        2 * n * 64 + 2 * n * 4 + 2 * 2 * B * H * 64, n_ops, PEAK_INT8_OPS)[0]
+                    dequant = lambda: dequantize_core(torch, wsp, q, kc, vc, None)  # noqa: E731
+                    row["plain_ms"] = cuda_ms(lambda: xi8._plain_cross_attention_i8(
                         q, kc, vc), 5)
-                    case["dequantize_ms"] = graph_ms(dequant, 20)
-                    case["dequantize_eager_ms"] = cuda_ms(dequant, 20)
-                    case["dequantize_rel_l2"] = rel_l2_t(torch, got, dequant())
-                cases.append(case)
+                    row["dequantize_ms"] = graph_ms(dequant, 20)
+                    row["dequantize_eager_ms"] = cuda_ms(dequant, 20)
+                    row["dequantize_rel_l2"] = rel_l2_t(torch, got, dequant())
+    for (B, H, S) in XI8_STEPPED:
+        q, kc, vc, mask = cross_i8_case(torch, g, B, H, S, torch.bfloat16, False)
+        plan = xi8.cross_i8_plan(B * H, S)
+        case = {"B": B, "H": H, "S": S, "dtype": "bf16", "masked": False, "plan": "wrapper",
+                **{k: plan[k] for k in ("cluster", "threads")}}
+        case.update(cross_i8_held(torch, xi8, q, kc, vc, mask, str(case))[2])
+        cases.append(case)
+        del q, kc, vc
+    build_info = ptxas_summary(build.LOGS.get("cross_attention_i8", ""))
     emit("kernel_cross_i8", tol=CROSS_I8_REL_TOL, code_share=CROSS_I8_CODE_SHARE,
-         cases=cases, bound_us=main["bound_ms"] * 1e3)
+         cases=cases, timed=timed, ptxas=build_info)
+    main, engine = timed["main"], timed["engine"]
     return {"name": "cross_attention_i8", "route": "cuda",
             "source": "infernos_tpu_torch/csrc/cross_attention_i8.cu",
             "replaces": "infernos_tpu/models/layers.py:431",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "library_ms": None,  # no single PyTorch call; dequantize_ms is the path it replaces
-            **{k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "bound_all_rows_ms", "dequantize_ms",
-                                    "dequantize_eager_ms")}}
+            **{k: main[k] for k in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_all_rows_ms", "dequantize_ms",
+                                    "dequantize_eager_ms", "plan")},
+            "engine_masks_ms": engine["ms"], "engine_masks_cold_ms": engine["cold_ms"],
+            "engine_masks_bound_ms": engine["bound_ms"],
+            "registers": sorted({k["registers"] for k in build_info.values()
+                                 if "registers" in k}),
+            "static_smem": sorted({k["static_smem"] for k in build_info.values()
+                                   if "static_smem" in k})}
 
 
 # -- phase 5: STT engine at whisper-large-v3 width ----------------------------

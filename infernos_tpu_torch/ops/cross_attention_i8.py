@@ -20,9 +20,10 @@ is new (about 0.4% of a row's max).
 layer, ``{"q": int8 [B, H, S, Dh], "s": f32 [B, H, S, 1]}``
 (``models/whisper.py`` ``quantize_kv``), and a ``[B, S]`` bool mask (True
 = valid) or None.  It returns ``[B, H, 1, Dh]`` in q's dtype.  On CUDA
-tensors it launches ``csrc/cross_attention_i8.cu`` or raises; on CPU
-tensors it runs :func:`_plain_cross_attention_i8`.  There is no fallback.
-Each launch adds one to ``cross_attention_i8.launches``.
+tensors it launches ``csrc/cross_attention_i8.cu`` under the plan of
+:func:`cross_i8_plan` or raises; on CPU tensors it runs
+:func:`_plain_cross_attention_i8`.  There is no fallback.  Each launch adds
+one to ``cross_attention_i8.launches``.
 """
 
 from __future__ import annotations
@@ -37,9 +38,20 @@ from . import build
 
 NEG_INF = -1e9
 HEAD_DIM = 64  # the kernel's compile-time head dim
-SMEM_MAX = 232448  # dynamic shared memory one block may ask for
-# int32 products stay exact while 127 * 127 * S < 2^31
-MAX_S = min((2 ** 31 - 1) // (127 * 127), (SMEM_MAX - 4096) // 5)
+SMEM_MAX = 232448  # shared memory one block may ask for
+STATIC_SMEM = 4096  # the kernel's static arrays, at most
+SM_SMEM = 233472  # shared memory of one SM (228 KB)
+BLOCK_RESERVED = 1024  # shared memory the card keeps per resident block
+SMS = 132  # H100 SXM
+RESIDENT_THREADS = 1280  # the kernel's __launch_bounds__: threads an SM
+CLUSTERS = (1, 2, 4, 8)
+THREADS = (64, 128, 256)
+TARGET_BLOCKS = 4 * SMS  # the blocks a plan aims for: at least 4 an SM
+# int32 products stay exact while 127 * 127 * S < 2^31; a block holds a K
+# slot of `threads` rows of 64 bytes and 16 bytes of each of its positions
+# (logit, two scales, list)
+MAX_S = min((2 ** 31 - 1) // (127 * 127),
+            max(CLUSTERS) * ((SMEM_MAX - STATIC_SMEM - HEAD_DIM * min(THREADS)) // 16))
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
@@ -111,25 +123,125 @@ def _check_args(q, k_c, v_c, kv_mask):
                                 or not kv_mask.is_contiguous()):
         raise ValueError(f"cross_attention_i8 kernel: kv_mask must be a contiguous "
                          f"bool [B, S] = {(B, S)}")
-    if not 1 <= S <= MAX_S:
-        raise ValueError(f"cross_attention_i8 kernel: S {S} outside 1..{MAX_S}")
     return B, H, S
+
+
+def block_range(S: int, cluster: int, rank: int) -> tuple:
+    """Block ``rank`` of a cluster of ``cluster``: its positions ``[s0, s1)``
+    of S, as the kernel computes them (empty where S < cluster)."""
+    R = -(-S // cluster)
+    s0 = min(S, rank * R)
+    return s0, min(S, s0 + R)
+
+
+def _blocks_per_sm(blocks: int, threads: int, smem_bytes: int) -> int:
+    """Blocks of one SM when ``blocks`` spread evenly over the card, or the
+    most one SM holds (threads, shared memory), whichever is fewer."""
+    hold = min(RESIDENT_THREADS // threads,
+               SM_SMEM // (smem_bytes + STATIC_SMEM + BLOCK_RESERVED))
+    return min(-(-blocks // SMS), hold)
+
+
+def _smem(threads: int, R: int) -> int:
+    """Dynamic shared-memory bytes of a block: its K slot, then four arrays
+    of ``R`` (rounded up to 4) words."""
+    return threads * HEAD_DIM + 16 * (-(-R // 4) * 4)
+
+
+def _resident_threads(blocks: int) -> tuple:
+    """The thread counts a block, most first, that keep every block of a
+    grid of ``blocks`` resident at once (the smallest where none does)."""
+    wave = -(-blocks // SMS)
+    fit = [t for t in reversed(THREADS) if wave * t <= RESIDENT_THREADS]
+    return tuple(fit) or (THREADS[0],)
+
+
+@functools.lru_cache(maxsize=None)
+def cross_i8_plan(BH: int, S: int, cluster: Optional[int] = None,
+                  threads: Optional[int] = None) -> dict:
+    """The kernel's launch plan for ``BH`` (batch, head) rows of ``S``
+    positions (cached: treat it as read-only).
+
+    Each row is a thread-block cluster of ``cluster`` blocks of ``threads``
+    threads; block r owns the positions :func:`block_range` (``R =
+    ceil(S / cluster)`` of them).  The plan takes the smallest cluster that
+    launches at least :data:`TARGET_BLOCKS` blocks (at most 8, and no more
+    blocks than positions) and the most threads a block that keep every
+    block of that grid resident at once (``RESIDENT_THREADS`` an SM); where
+    a block's positions do not fit its shared memory, fewer threads, then
+    larger clusters.  Shared memory (bytes): a K slot of ``threads`` rows
+    of 64, then four arrays of ``R`` (rounded up to 4) words: K scales, V
+    scales, logits, and the mask bytes, then the V rows listed; the slot
+    and the scales hold V rows once the weights are known.  Raises
+    ValueError for a shape it cannot hold: no rows, S past :data:`MAX_S`,
+    a cluster or thread count outside what the kernel is built for, shared
+    memory past a block's, a grid past 2^31 - 1."""
+    if BH < 1 or not 1 <= S <= MAX_S:
+        raise ValueError(f"cross_attention_i8 kernel: no plan for {BH} rows of S {S} "
+                         f"(S within 1..{MAX_S})")
+    room = SMEM_MAX - STATIC_SMEM
+    if cluster is None:
+        fits = [c for c in CLUSTERS if c == 1 or c <= S]
+        first = next((i for i, c in enumerate(fits) if BH * c >= TARGET_BLOCKS),
+                     len(fits) - 1)
+        clusters = fits[first:]
+    else:
+        clusters = [cluster]
+    choices = [(c, t) for c in clusters
+               for t in ((threads,) if threads else _resident_threads(BH * c))]
+    cluster, threads = next(((c, t) for c, t in choices
+                             if _smem(t, -(-S // c)) <= room), choices[0])
+    if cluster not in CLUSTERS or threads not in THREADS:
+        raise ValueError(f"cross_attention_i8 kernel: no plan of {cluster} blocks a "
+                         f"cluster, {threads} threads")
+    R = -(-S // cluster)
+    smem = _smem(threads, R)
+    if smem > room:
+        raise ValueError(f"cross_attention_i8 kernel: no plan for S {S} in clusters of "
+                         f"{cluster}: {smem} bytes of shared memory a block")
+    blocks = BH * cluster
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"cross_attention_i8 kernel: {BH} rows in clusters of {cluster} "
+                         f"need {blocks} blocks, more than a grid holds")
+    return {"BH": BH, "S": S, "cluster": cluster, "threads": threads, "rows": R,
+            "blocks": blocks, "blocks_per_sm": _blocks_per_sm(blocks, threads, smem),
+            "smem_bytes": smem}
+
+
+def cross_i8_plan_ints(plan: dict) -> list:
+    """The plan as ``cross_attn_i8`` takes it."""
+    return [plan[k] for k in ("cluster", "threads", "rows", "smem_bytes")]
+
+
+_PlanInts = ctypes.c_int * 4
+
+
+def plan_arg(plan: dict):
+    """The plan as a C array of ints."""
+    return _PlanInts(*cross_i8_plan_ints(plan))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(BH: int, S: int):
+    return plan_arg(cross_i8_plan(BH, S))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry, its library built at first use."""
     fn = build.load("cross_attention_i8").cross_attn_i8
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def _kernel_cross_attention_i8(q, k_c, v_c, kv_mask=None, codes=None):
-    """Launch the CUDA kernel: one block per (b, h).  ``codes``, an int8
-    ``[B, H, S]`` tensor or None, receives the weights' codes ``wq`` (for
-    the checks against the plain version)."""
+def _kernel_cross_attention_i8(q, k_c, v_c, kv_mask=None, codes=None, plan=None):
+    """Launch the CUDA kernel: a cluster of blocks per (b, h), under
+    :func:`cross_i8_plan` (``plan``, else the plan of the shape).
+    ``codes``, an int8 ``[B, H, S]`` tensor or None, receives the weights'
+    codes ``wq`` (for the checks against the plain version)."""
     B, H, S = _check_args(q, k_c, v_c, kv_mask)
+    arg = _plan_arg(B * H, S) if plan is None else plan_arg(plan)
     tensors = [q, k_c["q"], k_c["s"], v_c["q"], v_c["s"]]
     if kv_mask is not None:
         tensors.append(kv_mask)
@@ -149,7 +261,7 @@ def _kernel_cross_attention_i8(q, k_c, v_c, kv_mask=None, codes=None):
             v_c["q"].data_ptr(), v_c["s"].data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
             None if codes is None else codes.data_ptr(),
-            _DTYPES[q.dtype], B, H, S, stream)
+            _DTYPES[q.dtype], B, H, S, arg, stream)
     build.check(rc, "cross_attn_i8")
     cross_attention_i8.launches += 1
     return out

@@ -695,30 +695,39 @@ CROSS_I8_REL_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
 def _cross_i8_case(card, B, H, S, dtype, masked, seed):
     """``chip_smoke.cross_i8_case``: q scaled as the decode step scales it,
     int8 caches of positions of unlike magnitude, per-slot lengths with
-    every fourth slot empty (a lone slot keeps half its positions)."""
+    every fourth slot empty (a lone slot keeps half its positions), or the
+    STT engine's lengths cycled over the slots (``"engine"``)."""
     import chip_smoke
 
     g = torch.Generator(device=card).manual_seed(seed)
+    if masked == "engine":
+        masked = chip_smoke.XI8_ENGINE_LENS
     return chip_smoke.cross_i8_case(torch, g, B, H, S, dtype, masked)
 
 
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("S", [1, 63, 1500])
 @pytest.mark.parametrize("BH", [(1, 1), (16, 20)])
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "engine"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cross_i8_kernel_matches_plain(card, S, BH, masked, dtype):
-    """The kernel against its plain version on the same CUDA tensors: the
-    weights' codes equal but for at most one in a thousand (at least one
-    allowed), each at most one apart (the softmax sums in another order);
-    the output within one bf16 step (2^-7) or 1e-4 in fp32, relative L2;
-    one launch; two calls and a CUDA-graph replay give the same bits."""
+def test_cross_i8_kernel_matches_plain(card, S, BH, masked, dtype, cluster):
+    """The kernel against its plain version on the same CUDA tensors, under
+    the wrapper's plan and under clusters of 1, 2, 4 and 8 blocks (at S 1
+    and 63 some blocks own nothing or only masked positions; the engine's
+    masks leave whole ranges and whole rows masked): the weights' codes
+    equal but for at most one in a thousand (at least one allowed), each
+    at most one apart (the softmax sums in another order); the output
+    within one bf16 step (2^-7) or 1e-4 in fp32, relative L2; one launch;
+    two calls and a CUDA-graph replay give the same bits."""
     from infernos_tpu_torch.ops import cross_attention_i8 as xi8
 
     B, H = BH
-    q, kc, vc, mask = _cross_i8_case(card, B, H, S, dtype, masked, seed=S + 7 * B + masked)
+    q, kc, vc, mask = _cross_i8_case(card, B, H, S, dtype, masked,
+                                     seed=S + 7 * B + (masked is True) + 2 * (cluster or 0))
+    plan = None if cluster is None else xi8.cross_i8_plan(B * H, S, cluster=cluster)
     codes = torch.empty((B, H, S), dtype=torch.int8, device=card)
     before = xi8.cross_attention_i8.launches
-    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes)
+    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes, plan=plan)
     torch.cuda.synchronize()
     assert xi8.cross_attention_i8.launches == before + 1
     want, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
@@ -728,15 +737,39 @@ def test_cross_i8_kernel_matches_plain(card, S, BH, masked, dtype):
     assert diff.max().item() <= 1
     assert (diff > 0).sum().item() <= max(1, codes.numel() // 1000)
     assert _rel_l2(got, want) <= CROSS_I8_REL_TOL[dtype]
-    assert torch.equal(xi8.cross_attention_i8(q, kc, vc, mask), got)
+    call = lambda: xi8._kernel_cross_attention_i8(q, kc, vc, mask, plan=plan)  # noqa: E731
+    assert torch.equal(call(), got)
+    if cluster is None:
+        assert torch.equal(xi8.cross_attention_i8(q, kc, vc, mask), got)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        replayed = xi8.cross_attention_i8(q, kc, vc, mask)
+        replayed = call()
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, got)
+
+
+@pytest.mark.parametrize("BHS", [(24, 22, 14000), (16, 20, 30000)])
+def test_cross_i8_kernel_at_plans_stepped_for_shared_memory(card, BHS):
+    """Rows too long for the resident plan's shared memory (blocks of 64
+    threads at 528 rows of 14,000; clusters of 4 at 320 rows of 30,000):
+    the kernel under the wrapper's plan against its plain version, with
+    the tolerances above."""
+    from infernos_tpu_torch.ops import cross_attention_i8 as xi8
+
+    B, H, S = BHS
+    plan = xi8.cross_i8_plan(B * H, S)
+    assert (plan["cluster"], plan["threads"]) in ((1, 64), (4, 128))
+    q, kc, vc, mask = _cross_i8_case(card, B, H, S, torch.bfloat16, False, seed=S)
+    codes = torch.empty((B, H, S), dtype=torch.int8, device=card)
+    got = xi8._kernel_cross_attention_i8(q, kc, vc, mask, codes=codes)
+    want, _, want_codes = xi8._plain_cross_attention_i8(q, kc, vc, mask, return_codes=True)
+    diff = (codes.int() - want_codes.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() <= max(1, codes.numel() // 1000)
+    assert _rel_l2(got, want) <= CROSS_I8_REL_TOL[torch.bfloat16]
 
 
 def test_cross_i8_kernel_refuses_instead_of_taking_the_plain_route(card, monkeypatch):
